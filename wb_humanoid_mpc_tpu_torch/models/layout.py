@@ -1,0 +1,85 @@
+"""Whole-body state/input layout: index arithmetic on tensors.
+
+PyTorch counterpart of `WBLayout` in `wb_humanoid_mpc_tpu/models/layout.py`
+(the centroidal layout waits for the centroidal formulation). Every accessor
+is a slice of the last dim, so it works on batched tensors.
+
+    state  x = [q_base(6), q_joints(n), v_base(6), v_joints(n)]   (12+2n)
+    input  u = [W_l(6), W_r(6), qdd_joints(n)]                    (12+n)
+
+q_base = [p_xyz(3), theta_zyx(3)], v_base = [world linear vel, euler rates].
+Wrenches are world-frame [force(3), torque(3)] per contact.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+N_CONTACTS = 2
+WRENCH_DIM = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class WBLayout:
+    n_joints: int
+
+    @property
+    def input_dim(self) -> int:
+        return N_CONTACTS * WRENCH_DIM + self.n_joints
+
+    @property
+    def state_dim(self) -> int:
+        return 12 + 2 * self.n_joints
+
+    @property
+    def nq(self) -> int:
+        return 6 + self.n_joints
+
+    # --- input ---
+    def contact_wrench(self, u, contact: int):
+        return u[..., 6 * contact: 6 * contact + 6]
+
+    def contact_force(self, u, contact: int):
+        return u[..., 6 * contact: 6 * contact + 3]
+
+    def contact_torque(self, u, contact: int):
+        return u[..., 6 * contact + 3: 6 * contact + 6]
+
+    def contact_wrenches(self, u):
+        """[..., N_CONTACTS, 6]"""
+        return u[..., : 6 * N_CONTACTS].reshape(*u.shape[:-1], N_CONTACTS, 6)
+
+    def joint_input(self, u):
+        """Joint accelerations."""
+        return u[..., 6 * N_CONTACTS:]
+
+    # --- state ---
+    def base_pose(self, x):
+        return x[..., 0:6]
+
+    def base_position(self, x):
+        return x[..., 0:3]
+
+    def base_euler_zyx(self, x):
+        return x[..., 3:6]
+
+    def joint_angles(self, x):
+        return x[..., 6: 6 + self.n_joints]
+
+    def base_velocity(self, x):
+        n = self.n_joints
+        return x[..., 6 + n: 12 + n]
+
+    def joint_velocities(self, x):
+        return x[..., 12 + self.n_joints:]
+
+    def generalized_coordinates(self, x):
+        return x[..., : 6 + self.n_joints]
+
+    def generalized_velocities(self, x):
+        return x[..., 6 + self.n_joints:]
+
+    def assemble(self, q, v):
+        return torch.cat([q, v], dim=-1)

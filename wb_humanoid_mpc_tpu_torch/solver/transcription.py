@@ -1,0 +1,262 @@
+"""Multiple-shooting transcription + LQ approximation.
+
+PyTorch counterpart of `wb_humanoid_mpc_tpu/solver/transcription.py` in its
+production mode: `sensitivity="node"` with the RK4 tail finished at the
+batched level (`external_tail=True`). Per node, the continuous dynamics and
+the cost/constraint terms (`ocp.fused_node`) are linearized once at the node:
+
+    x-pass: torch.func.vmap over the nx identity tangents of torch.func.jvp
+            (JAX: jax.vmap(jvp_x)(eye_x) after jax.linearize)
+    u-pass: the same over the nu identity tangents
+
+and the linearization is discretized with the RK4 matrix polynomial
+Phi = I + hA + (hA)^2/2 + (hA)^3/6 + (hA)^4/24,
+Gamma = h (I + hA/2 + (hA)^2/6 + (hA)^3/24) B. The primal step is exact RK4:
+k1 comes with the linearization, k2..k4 from `flow_batch` over all nodes at
+once (the CUDA FK kernel on the card, `models/wb_model.py::flow_map_batch`).
+
+Where JAX `vmap`s the node function over nodes, the port passes [N, ...]
+tensors to the batched `fused_node`; the tangent batch is the only `vmap`.
+The "exact" and "midpoint" sensitivities are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from wb_humanoid_mpc_tpu_torch.ocp.base import BarrierParams
+from wb_humanoid_mpc_tpu_torch.ocp.penalties import (
+    quadratic_barrier,
+    quadratic_barrier_d1,
+    quadratic_barrier_d2,
+    relaxed_log_barrier,
+    relaxed_log_barrier_d1,
+    relaxed_log_barrier_d2,
+)
+
+
+def rk4_step(flow, t, x, u, dt):
+    """Classic RK4 with zero-order-hold input."""
+    k1 = flow(t, x, u)
+    k2 = flow(t + 0.5 * dt, x + 0.5 * dt * k1, u)
+    k3 = flow(t + 0.5 * dt, x + 0.5 * dt * k2, u)
+    k4 = flow(t + dt, x + dt * k3, u)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+class LQApprox(NamedTuple):
+    """Batched LQ data over N nodes (+ terminal)."""
+
+    A: torch.Tensor      # [N, nx, nx]
+    B: torch.Tensor      # [N, nx, nu]
+    d: torch.Tensor      # [N, nx] defects: F(x_k,u_k) - x_{k+1}
+    Qxx: torch.Tensor    # [N, nx, nx]
+    Quu: torch.Tensor    # [N, nu, nu]
+    Qux: torch.Tensor    # [N, nu, nx]
+    qx: torch.Tensor     # [N, nx]
+    qu: torch.Tensor     # [N, nu]
+    QN: torch.Tensor     # [nx, nx]
+    qN: torch.Tensor     # [nx]
+    cost: torch.Tensor = None         # scalar: total nonlinear cost (incl. AL terms)
+    g_norm: torch.Tensor = None       # scalar: max |g| over nodes
+    defect_norm: torch.Tensor = None  # scalar: max |d|
+    Cx: torch.Tensor = None           # [N, nc, nx] equality state Jacobians
+    Du: torch.Tensor = None           # [N, nc, nu] equality input Jacobians
+    g_res: torch.Tensor = None        # [N, nc] equality residuals
+    cost_pure: torch.Tensor = None    # scalar: cost without AL terms (+ terminal)
+    viol: torch.Tensor = None         # scalar: sqrt(SSE(g) + SSE(defects))
+
+
+class Trajectory(NamedTuple):
+    xs: torch.Tensor   # [N+1, nx]
+    us: torch.Tensor   # [N, nu]
+
+
+class _Terms(NamedTuple):
+    r: torch.Tensor
+    h_log: torch.Tensor
+    h_log_mask: torch.Tensor
+    h_quad: torch.Tensor
+    g: torch.Tensor
+
+
+def node_cost_terms(terms, bp: BarrierParams, lam, rho):
+    """Per-node scalar cost of NodeTerms with leading dims (AL included)."""
+    c = 0.5 * torch.sum(terms.r ** 2, dim=-1)
+    c = c + torch.sum(terms.h_log_mask
+                      * relaxed_log_barrier(terms.h_log, bp.log_mu, bp.log_delta), dim=-1)
+    c = c + torch.sum(quadratic_barrier(terms.h_quad, bp.quad_mu, bp.quad_delta), dim=-1)
+    return c + 0.5 * rho * torch.sum((terms.g + lam / rho) ** 2, dim=-1)
+
+
+def _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho):
+    """Gauss-Newton gradient [..., nz] and Hessian [..., nz, nz] over stacked
+    z = (x, u) Jacobians J* [..., rows, nz]."""
+    pl1 = hmask * relaxed_log_barrier_d1(h_log, bp.log_mu, bp.log_delta)
+    pl2 = hmask * relaxed_log_barrier_d2(h_log, bp.log_mu, bp.log_delta)
+    pq1 = quadratic_barrier_d1(h_quad, bp.quad_mu, bp.quad_delta)
+    pq2 = quadratic_barrier_d2(h_quad, bp.quad_mu, bp.quad_delta)
+    g_al = rho * g + lam
+
+    def JTv(J, vec):
+        return (J.transpose(-1, -2) @ vec[..., None])[..., 0]
+
+    grad = JTv(Jr, r) + JTv(Jhl, pl1) + JTv(Jhq, pq1) + JTv(Jg, g_al)
+    JrT, JhlT, JhqT, JgT = (J.transpose(-1, -2) for J in (Jr, Jhl, Jhq, Jg))
+    Hess = (JrT @ Jr + (JhlT * pl2[..., None, :]) @ Jhl
+            + (JhqT * pq2[..., None, :]) @ Jhq + rho * (JgT @ Jg))
+    return grad, Hess
+
+
+def _tangent_jacobians(f, primal, n):
+    """Jacobians of every output of f at `primal` ([N, n]) by forward mode:
+    one jvp per identity tangent, batched by torch.func.vmap. Returns
+    (outputs, [N, out, n] Jacobians of each output)."""
+    eye = torch.eye(n, dtype=primal.dtype, device=primal.device)
+    tangents = eye[:, None, :].expand(n, primal.shape[0], n)
+
+    def jvp_one(tangent):
+        return torch.func.jvp(f, (primal,), (tangent,))
+
+    outs, jac = torch.func.vmap(jvp_one, out_dims=(None, 0))(tangents)
+    return outs, tuple(torch.movedim(j, 0, -1) for j in jac)
+
+
+def make_node_lq(ocp, dt: float, bp: BarrierParams) -> Callable:
+    """Batched node LQ builder: (t [N], x [N,nx], u [N,nu], params [N,...], lam
+    [N,nc], rho) -> the 15-tuple of JAX's `make_node_lq` in its
+    ("node", external_tail) mode, each with a leading N:
+    (A_d, B_d, k1, Qxx, Quu, Qux, qx, qu, cost, g_max, g, Cx, Du, cost_pure, g_sse).
+    k1 fills the x_next slot; the caller finishes RK4 with a batched flow."""
+
+    def node_lq(t, x, u, p, lam, rho):
+        nx, nu = x.shape[-1], u.shape[-1]
+
+        def fx(x_):
+            terms, xdot = ocp.fused_node(t, x_, u, p)
+            return terms.r, terms.h_log, terms.h_quad, terms.g, xdot, terms.h_log_mask
+
+        def fu(u_):
+            terms, xdot = ocp.fused_node(t, x, u_, p)
+            return terms.r, terms.h_log, terms.h_quad, terms.g, xdot
+
+        # one heavy linearization over x (the full rigid-body graph) ...
+        (r, h_log, h_quad, g, k1, hmask), Jx = _tangent_jacobians(fx, x, nx)
+        Jr_x, Jhl_x, Jhq_x, Jg_x, Ac = Jx[:5]
+        # ... and one over u
+        _, Ju = _tangent_jacobians(fu, u, nu)
+        Jr_u, Jhl_u, Jhq_u, Jg_u, Bc = Ju
+
+        eye = torch.eye(nx, dtype=x.dtype, device=x.device)
+        hA = dt * Ac
+        S = eye + (hA / 2.0) @ (eye + (hA / 3.0) @ (eye + hA / 4.0))
+        A_d = eye + hA @ S
+        B_d = dt * (S @ Bc)
+        Jr = torch.cat([Jr_x, Jr_u], dim=-1)
+        Jhl = torch.cat([Jhl_x, Jhl_u], dim=-1)
+        Jhq = torch.cat([Jhq_x, Jhq_u], dim=-1)
+        Jg = torch.cat([Jg_x, Jg_u], dim=-1)
+        grad, Hess = _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho)
+        terms = _Terms(r, h_log, hmask, h_quad, g)
+        cost = node_cost_terms(terms, bp, lam, rho)
+        c_pure = node_cost_terms(terms, bp, torch.zeros_like(g), 1e-12)
+        return (A_d, B_d, k1,
+                Hess[..., :nx, :nx], Hess[..., nx:, nx:], Hess[..., nx:, :nx],
+                grad[..., :nx], grad[..., nx:], cost, torch.amax(torch.abs(g), dim=-1),
+                g, Jg_x, Jg_u, c_pure, torch.sum(g ** 2, dim=-1))
+
+    return node_lq
+
+
+def _stage(params):
+    return type(params)(*(a[:-1] for a in params))
+
+
+def _last(params):
+    return type(params)(*(a[-1] for a in params))
+
+
+def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams, flow_batch=None):
+    """Returns (lq_approximation, eq_residuals, candidate_perf, defects) over
+    full [N(+1), ...] trajectories (see `make_node_lq`).
+
+    flow_batch(ts [B], xs [B,nx], us [B,nu]) -> xdots [B,nx] runs the pure RK4
+    stages and rollouts outside the linearization; the default is the
+    batched `flow`, which is mathematically identical.
+    """
+    if not hasattr(ocp, "fused_node"):
+        raise NotImplementedError("the port linearizes through ocp.fused_node only")
+    if flow_batch is None:
+        flow_batch = flow
+    node_lq = make_node_lq(ocp, dt, bp)
+
+    def rk4_tail(times_s, xs_s, us, k1):
+        """Finish RK4 from k1 at the batched level (3 flow_batch calls). Leading
+        dims of xs_s/us/k1 are flattened into one batch."""
+        shape = xs_s.shape
+
+        def fb(ts, xs):
+            lead = xs.shape[:-1]
+            out = flow_batch(ts.expand(lead).reshape(-1), xs.reshape(-1, shape[-1]),
+                             us.reshape(-1, us.shape[-1]))
+            return out.reshape(shape)
+
+        k2 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k1)
+        k3 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k2)
+        k4 = fb(times_s + dt, xs_s + dt * k3)
+        return xs_s + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    def lq_approximation(traj: Trajectory, times, params, lam, rho) -> LQApprox:
+        xs, us = traj.xs, traj.us
+        (A, B, k1, Qxx, Quu, Qux, qx, qu, costs, gmax,
+         g_res, Cx, Du, c_pure, g_sse) = node_lq(times[:-1], xs[:-1], us, _stage(params),
+                                                 lam, rho)
+        x_next = rk4_tail(times[:-1], xs[:-1], us, k1)
+        d = x_next - xs[1:]
+
+        # terminal quadratic (the residual is linear in x: its Jacobian is
+        # taken by the same forward-mode rule)
+        pT = _last(params)
+
+        def term_res(x):
+            return ocp.terminal_residual(times[-1], x, pT)
+
+        nx = xs.shape[-1]
+        eye = torch.eye(nx, dtype=xs.dtype, device=xs.device)
+        rT, JT = torch.func.vmap(lambda tv: torch.func.jvp(term_res, (xs[-1],), (tv,)),
+                                 out_dims=(None, 1))(eye)
+        QN = JT.T @ JT
+        qN = JT.T @ rT
+        term = 0.5 * torch.sum(rT ** 2)
+        return LQApprox(A=A, B=B, d=d, Qxx=Qxx, Quu=Quu, Qux=Qux, qx=qx, qu=qu,
+                        QN=QN, qN=qN, cost=torch.sum(costs) + term,
+                        g_norm=torch.amax(gmax), defect_norm=torch.amax(torch.abs(d)),
+                        Cx=Cx, Du=Du, g_res=g_res,
+                        cost_pure=torch.sum(c_pure) + term,
+                        viol=torch.sqrt(torch.sum(g_sse) + torch.sum(d ** 2)))
+
+    def eq_residuals(traj: Trajectory, times, params):
+        return ocp.node_terms(times[:-1], traj.xs[:-1], traj.us, _stage(params)).g
+
+    def candidate_perf(traj: Trajectory, times, params):
+        """(pure cost, total violation) of line-search candidates: traj.xs
+        [..., N+1, nx], traj.us [..., N, nu] with any leading candidate dims.
+        One fused node sweep gives the terms and the RK4 k1; k2..k4 run
+        batched through `flow_batch` over candidates x nodes."""
+        xs, us = traj.xs, traj.us
+        terms, k1 = ocp.fused_node(times[:-1], xs[..., :-1, :], us, _stage(params))
+        cs = node_cost_terms(terms, bp, torch.zeros_like(terms.g), 1e-12)
+        g_sse = torch.sum(terms.g ** 2, dim=-1)
+        x_next = rk4_tail(times[:-1], xs[..., :-1, :], us, k1)
+        d = x_next - xs[..., 1:, :]
+        rT = ocp.terminal_residual(times[-1], xs[..., -1, :], _last(params))
+        return (torch.sum(cs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
+                torch.sqrt(torch.sum(g_sse, dim=-1) + torch.sum(d ** 2, dim=(-2, -1))))
+
+    def defects(traj: Trajectory, times):
+        k1 = flow_batch(times[:-1], traj.xs[:-1], traj.us)
+        return rk4_tail(times[:-1], traj.xs[:-1], traj.us, k1) - traj.xs[1:]
+
+    return lq_approximation, eq_residuals, candidate_perf, defects

@@ -1,0 +1,94 @@
+"""Rotation utilities (euler-ZYX convention), batched over leading dims.
+
+PyTorch counterpart of `wb_humanoid_mpc_tpu/utils/rotations.py`. The base
+orientation is parameterized by intrinsic euler-ZYX angles stored as
+``[theta_z, theta_y, theta_x]``:
+
+    R(theta) = Rz(theta_z) @ Ry(theta_y) @ Rx(theta_x)
+
+Every function takes tensors with arbitrary leading dims and works under
+`torch.func` transforms (no in-place writes).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _mat(rows):
+    """3x3 nested list of [...] tensors -> [..., 3, 3]."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def skew(v):
+    """3-vector -> skew-symmetric matrix such that skew(a) @ b = a x b."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return _mat([[zero, -z, y], [z, zero, -x], [-y, x, zero]])
+
+
+def cross(a, b):
+    """a x b over the last dim (written out: `torch.linalg.cross` broadcasting
+    differs from `jnp.cross` on leading dims)."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def rot_x(a):
+    c, s = torch.cos(a), torch.sin(a)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    return _mat([[one, zero, zero], [zero, c, -s], [zero, s, c]])
+
+
+def rot_y(a):
+    c, s = torch.cos(a), torch.sin(a)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    return _mat([[c, zero, s], [zero, one, zero], [-s, zero, c]])
+
+
+def rot_z(a):
+    c, s = torch.cos(a), torch.sin(a)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    return _mat([[c, -s, zero], [s, c, zero], [zero, zero, one]])
+
+
+def euler_zyx_to_rot(euler_zyx):
+    """[theta_z, theta_y, theta_x] -> world_R_body = Rz @ Ry @ Rx."""
+    tz, ty, tx = euler_zyx[..., 0], euler_zyx[..., 1], euler_zyx[..., 2]
+    return rot_z(tz) @ rot_y(ty) @ rot_x(tx)
+
+
+def rot_to_euler_zyx(R):
+    """Inverse of :func:`euler_zyx_to_rot`; theta_y in [-pi/2, pi/2]."""
+    ty = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    tz = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    tx = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([tz, ty, tx], dim=-1)
+
+
+def euler_zyx_rate_to_world_omega_map(euler_zyx):
+    """E(theta) with omega_world = E @ [dtheta_z, dtheta_y, dtheta_x].
+
+    Columns: e_z, Rz @ e_y, Rz @ Ry @ e_x (intrinsic ZYX composition).
+    """
+    tz, ty = euler_zyx[..., 0], euler_zyx[..., 1]
+    cz, sz = torch.cos(tz), torch.sin(tz)
+    cy, sy = torch.cos(ty), torch.sin(ty)
+    zero, one = torch.zeros_like(tz), torch.ones_like(tz)
+    return _mat([[zero, -sz, cz * cy], [zero, cz, sz * cy], [one, zero, -sy]])
+
+
+def euler_zyx_rate_map_derivative(euler_zyx, rates):
+    """dE/dt along the euler rates (the jvp JAX takes of
+    `euler_zyx_rate_to_world_omega_map`, written out)."""
+    tz, ty = euler_zyx[..., 0], euler_zyx[..., 1]
+    tzd, tyd = rates[..., 0], rates[..., 1]
+    cz, sz = torch.cos(tz), torch.sin(tz)
+    cy, sy = torch.cos(ty), torch.sin(ty)
+    zero = torch.zeros_like(tz)
+    return _mat([
+        [zero, -cz * tzd, -sz * tzd * cy - cz * sy * tyd],
+        [zero, -sz * tzd, cz * tzd * cy - sz * sy * tyd],
+        [zero, zero, -cy * tyd],
+    ])
