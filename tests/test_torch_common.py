@@ -116,3 +116,78 @@ def check_pair(seed: int, make_inputs, jax_fn, port_fn, dtype: str, *, rtol: flo
     got = port_fn(*(torch.as_tensor(a, dtype=tdt) for a in inputs))
     assert_close(got, ref, rtol=rtol, atol=atol, what=what)
     return got, ref
+
+
+# ---- whole solves on toy_biped (tests/test_torch_variants*.py, test_torch_ddp.py) ----
+
+SOLVE_TOL = {"f64": 1e-6, "f32": 2e-3}   # x max(1, max|ref|), as tests/test_torch_sqp.py
+
+
+def _setups():
+    return {"stance": port_interface.stance_reference, "walk": port_interface.walking_reference}
+
+
+def jax_solutions(make_solver, config_fields: dict, N: int, dtypes=("f64",)) -> dict:
+    """{(setup, dtype): (xs, us, cost, g_norm, step_size, lam)} as numpy: the
+    JAX solver `make_solver(ocp, flow, bp, SqpSolverConfig(N, dt, **fields))`,
+    jitted once per dtype, on the toy_biped problem of
+    `wb_humanoid_mpc_tpu_torch.interface.build_wb_problem` for each setup."""
+    from wb_humanoid_mpc_tpu.ocp.params import weight_comp_input
+    from wb_humanoid_mpc_tpu.ocp.wb_ocp import make_wb_node_params
+    from wb_humanoid_mpc_tpu.refs.swing import SwingReference
+    from wb_humanoid_mpc_tpu.solver.sqp import SqpSolverConfig
+    from wb_humanoid_mpc_tpu.solver.transcription import Trajectory
+
+    cfg, model, ocp = jax_wb("toy_biped")
+    out = {}
+    for dtype in dtypes:
+        jdt = DTYPES[dtype][0]
+        with jax_mode(dtype):
+            solve = jax.jit(make_solver(ocp, model.flow_map, ocp.barrier_params(),
+                                        SqpSolverConfig(n_nodes=N, dt=cfg.sqp.dt,
+                                                        **config_fields)))
+            for setup, reference in _setups().items():
+                ref = reference(N)
+                swing = SwingReference(contact_flags=ref.contact_flags, z_pos=ref.z_pos,
+                                       z_vel=ref.z_vel, z_acc=ref.z_acc, proximity=ref.proximity)
+                x0 = jnp.asarray(cfg.initial_state, dtype=jdt)
+                params = make_wb_node_params(ocp, swing, jnp.tile(x0, (N + 1, 1)))
+                u0 = weight_comp_input(model.robot.total_mass, model.robot.gravity, jnp.ones(2),
+                                       model.layout.input_dim)
+                traj = Trajectory(xs=jnp.tile(x0, (N + 1, 1)), us=jnp.tile(u0, (N, 1)))
+                sol = solve(0.0, x0, traj, params, jnp.zeros((N, ocp.n_eq), jdt))
+                out[(setup, dtype)] = to_numpy((sol.traj.xs, sol.traj.us, sol.cost, sol.g_norm,
+                                                sol.step_size, sol.lam))
+    return out
+
+
+def port_problem(setup: str, N: int, dtype: str):
+    """The toy_biped problem of `jax_solutions` in the port, on the CPU."""
+    return port_interface.build_wb_problem(ASSETS / "toy_biped", N, device="cpu",
+                                           dtype=DTYPES[dtype][1], swing=_setups()[setup](N))
+
+
+def assert_solution_close(sol, ref, dtype: str, what: str) -> None:
+    """A port SqpSolution against `jax_solutions`' tuple: traj, cost, g_norm
+    and multipliers at SOLVE_TOL[dtype] x max(1, max|ref|), the same step."""
+    got = to_numpy((sol.traj.xs, sol.traj.us, sol.cost, sol.g_norm, sol.lam))
+    for name, a, b in zip(("traj.xs", "traj.us", "cost", "g_norm", "lam"), got,
+                          (*ref[:4], ref[5])):
+        b = np.asarray(b, np.float64)
+        limit = SOLVE_TOL[dtype] * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(np.asarray(a, np.float64) - b).max())
+        assert err <= limit, f"{what} {name}: {err:.3e} > {limit:.3e}"
+    assert np.isfinite(got[2])
+    assert float(sol.step_size) == float(ref[4]), f"{what}: step {float(sol.step_size)} vs {ref[4]}"
+
+
+def check_variant(jax_refs: dict, fields: dict, setup: str, dtype: str, N: int) -> None:
+    """The port's `make_sqp_solver` with `fields` against `jax_refs[(setup, dtype)]`."""
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
+
+    pb = port_problem(setup, N, dtype)
+    solve = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp,
+                            SqpSolverConfig(n_nodes=N, dt=pb.cfg.sqp.dt, **fields), device="cpu")
+    sol = solve(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    assert sol.iterations == fields.get("sqp_iterations", 1)
+    assert_solution_close(sol, jax_refs[(setup, dtype)], dtype, f"{fields} {setup} {dtype}")

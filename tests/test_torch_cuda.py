@@ -2,14 +2,17 @@
 on the card, in float32 and float64, at the main path's shapes and at the
 edges of the kernels' launch geometry (a second block and a ragged tail for
 K2; the shared-memory opt-in above 48 KB and the refusal above 227 KB for
-K1). Needs an NVIDIA card and `nvcc`; skipped elsewhere. This file imports
-no JAX, so it also runs where JAX is not installed:
+K1, and K1 on the AL path's unprojected LQ from real solver data; for K3
+more rows than warps and a batch). Needs an NVIDIA card and `nvcc`; skipped
+elsewhere. This file imports no JAX, so it also runs where JAX is not
+installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K2 as tests/test_ops_fkvel.py's Mosaic tier (f32 rtol 1e-4,
 atol 5e-6), K1 as tests/test_ops_riccati.py's (f32 rtol 1e-3, atol 5e-4);
-float64 at 1e-9 relative to each output's largest entry."""
+K3 as tests/test_ops_rollout.py's (f32 1e-5, f64 1e-12, times max(1,
+max|ref|)); otherwise float64 at 1e-9 relative to each output's largest entry."""
 
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from wb_humanoid_mpc_tpu_torch.interface import ASSETS, load_wb_model
-from wb_humanoid_mpc_tpu_torch.ops import fkvel, riccati
+from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem, load_wb_model
+from wb_humanoid_mpc_tpu_torch.ops import fkvel, riccati, rollout
+from wb_humanoid_mpc_tpu_torch.solver.riccati import levenberg_damp
+from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig
+from wb_humanoid_mpc_tpu_torch.solver.transcription import make_lq_functions
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +106,53 @@ def test_riccati_kernel_refuses_shapes_beyond_shared_memory(card):
     args = _lq(0, 2, 120, 60, torch.float64, card)
     with pytest.raises(ValueError, match="shared memory"):
         riccati.riccati_rollout_cuda(*args)
+
+
+K3_TOL = {torch.float32: dict(rtol=0.0, atol=1e-5), torch.float64: dict(rtol=0.0, atol=1e-12)}
+
+
+def _stages(seed, N, nx, nu, dtype, card, batch=None):
+    rng = np.random.default_rng(seed)
+    parts = [rollout.random_stage_data(rng, N, nx, nu, dtype=np.float64)
+             for _ in range(batch or 1)]
+    return [torch.as_tensor(np.stack([p[k] for p in parts]) if batch else parts[0][k],
+                            dtype=dtype, device=card)
+            for k in ("A", "B", "d", "K", "k", "dx0")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(28, 58, 35), (28, 58, 21), (15, 35, 35), (7, 12, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rollout_kernel_matches_plain(card, shape, dtype):
+    """nx 58 is more rows than the block's 32 warps: a warp takes two."""
+    args = _stages(sum(shape), *shape, dtype, card)
+    before = rollout.LAUNCHES
+    got = rollout.forward_rollout_cuda(*args)
+    assert rollout.LAUNCHES == before + 1
+    assert got[0].shape == (shape[0] + 1, shape[1]) and got[1].shape == (shape[0], shape[2])
+    _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], f"K3 {shape}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rollout_kernel_batch(card, dtype):
+    args = _stages(4, 28, 58, 35, dtype, card, batch=3)
+    got = rollout.forward_rollout_cuda(*args)
+    assert got[0].shape == (3, 29, 58) and got[1].shape == (3, 28, 35)
+    _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], "K3 batch")
+
+
+def test_riccati_kernel_on_the_al_path_lq(card):
+    """K1 at (28, 58, 35) on the AL path's unprojected, damped LQ of the
+    humanoid23 stance problem (rho 1e3, f32), against the plain version."""
+    pb = build_wb_problem(ASSETS / "humanoid23", 28, device=card, dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=28, dt=pb.cfg.sqp.dt)
+    fns = make_lq_functions(pb.ocp, pb.model.flow_map, cfg.dt, 28, pb.bp, sensitivity="node",
+                            flow_batch=pb.model.flow_map_batch)
+    times = cfg.dt * torch.arange(29, dtype=torch.float32, device=card)
+    lq = levenberg_damp(fns.lq_approximation(pb.traj, times, pb.params, pb.lam, cfg.rho), cfg.reg)
+    assert lq.B.shape == (28, 58, 35)
+    args = (lq.A, lq.B, lq.d, lq.Qxx, lq.Quu, lq.Qux, lq.qx, lq.qu, lq.QN, lq.qN,
+            torch.zeros(58, dtype=torch.float32, device=card))
+    got = riccati.riccati_rollout_cuda(*args, reg=cfg.reg_num)
+    _close(got, riccati.riccati_rollout_plain(*args, reg=cfg.reg_num), TOL[torch.float32],
+           "K1 AL path")

@@ -146,7 +146,7 @@ def test_rk4_defects_and_joint_torques(dtype):
     times = dt * torch.arange(N + 1, dtype=tdt)
     port_defects = make_lq_functions(tocp, tmodel.flow_map, dt, N,
                                      tocp.barrier_params("cpu", tdt),
-                                     flow_batch=tmodel.flow_map_batch)[3]
+                                     flow_batch=tmodel.flow_map_batch).defects
     got = to_numpy([rk4_step(tmodel.flow_map, times[:-1], txs[:-1], tus, dt),
                     port_defects(Trajectory(xs=txs, us=tus), times),
                     tmodel.joint_torques(txs[:-1], tus)])
@@ -168,7 +168,8 @@ def test_make_node_lq(dtype):
         ref = to_numpy(jax.jit(jax.vmap(node_lq, in_axes=(0, 0, 0, 0, 0, None)))(
             t, jx, ju, jp, jl, rho))
     tdt = DTYPES[dtype][1]
-    port_lq = make_node_lq(tocp, dt, tocp.barrier_params("cpu", tdt))
+    port_lq = make_node_lq(tocp, tocp.model.flow_map, dt, tocp.barrier_params("cpu", tdt),
+                           sensitivity="node")
     got = to_numpy(port_lq(*_port_args(x, u, params, lam, dtype), rho))
     assert len(got) == len(ref) == 15
     _scaled_close(got, ref, TOL[dtype], "make_node_lq")

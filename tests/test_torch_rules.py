@@ -1,8 +1,8 @@
 """PyTorch port, ground rules: the port imports neither JAX nor the JAX
 package; its entry points default to the CUDA card and never carry on on the
 CPU when there is none; a kernel wrapper asked for its kernel on CPU tensors
-raises instead of running the plain version; config options the port does
-not have raise instead of being ignored."""
+raises instead of running the plain version; config values the solver does
+not know raise instead of being ignored."""
 
 from __future__ import annotations
 
@@ -20,8 +20,13 @@ import torch
 
 import wb_humanoid_mpc_tpu_torch
 from wb_humanoid_mpc_tpu_torch import convert, interface
-from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati
-from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
+from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati, rollout
+from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
+from wb_humanoid_mpc_tpu_torch.solver.sqp import (
+    SqpSolverConfig,
+    make_sqp_solver,
+    make_staged_sqp_solver,
+)
 
 torch.set_num_threads(1)
 
@@ -67,6 +72,10 @@ ENTRY_POINTS = {
     "build_wb_problem": lambda pb: interface.build_wb_problem(TOY, 3),
     "make_sqp_solver": lambda pb: make_sqp_solver(
         pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)),
+    "make_staged_sqp_solver": lambda pb: make_staged_sqp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)),
+    "make_ddp_solver": lambda pb: make_ddp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)),
     "node_params_from_numpy": lambda pb: convert.node_params_from_numpy(
         {f: getattr(pb.params, f).numpy() for f in pb.params._fields}),
     "trajectory_from_numpy": lambda pb: convert.trajectory_from_numpy(
@@ -77,6 +86,7 @@ ENTRY_POINTS = {
 @pytest.mark.parametrize("entry", list(ENTRY_POINTS))
 def test_entry_point_defaults_to_the_card(entry, toy_problem, no_card):
     fn = {"build_wb_problem": interface.build_wb_problem, "make_sqp_solver": make_sqp_solver,
+          "make_staged_sqp_solver": make_staged_sqp_solver, "make_ddp_solver": make_ddp_solver,
           "node_params_from_numpy": convert.node_params_from_numpy,
           "trajectory_from_numpy": convert.trajectory_from_numpy}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -110,6 +120,21 @@ def _call_riccati_wrapper(pb):
                                         lq.qu, lq.QN, lq.qN, dx0)
 
 
+def _cpu_stages():
+    data = rollout.random_stage_data(np.random.default_rng(0), 3, 6, 2, dtype=np.float64)
+    return [torch.as_tensor(data[k]) for k in ("A", "B", "d", "K", "k", "dx0")]
+
+
+def _call_rollout_cuda(pb):
+    A, B, d, K, k, dx0 = _cpu_stages()
+    return rollout.forward_rollout(types.SimpleNamespace(A=A, B=B, d=d),
+                                   types.SimpleNamespace(K=K, k=k), dx0, backend="cuda")
+
+
+def _call_rollout_wrapper(pb):
+    return rollout.forward_rollout_cuda(*_cpu_stages())
+
+
 def _call_fkvel_cuda(pb):
     q = torch.zeros(4, pb.model.robot.nq, dtype=torch.float64)
     return fkvel.fkvel_batch(pb.model.robot, q, q, backend="cuda")
@@ -127,35 +152,39 @@ def _call_solver_cuda(pb):
     return solve(0.0, pb.x0, pb.traj, pb.params, pb.lam)
 
 
-@pytest.mark.parametrize("call", [_call_riccati_cuda, _call_riccati_wrapper, _call_fkvel_cuda,
+@pytest.mark.parametrize("call", [_call_riccati_cuda, _call_riccati_wrapper, _call_rollout_cuda,
+                                  _call_rollout_wrapper, _call_fkvel_cuda,
                                   _call_flow_map_batch_cuda, _call_solver_cuda],
                          ids=lambda f: f.__name__[len("_call_"):])
 def test_kernel_backend_refuses_cpu_tensors(call, toy_problem):
     """backend='cuda' on CPU tensors raises before anything is built or
     counted: a kernel wrapper never falls back to its plain version."""
-    before = (riccati.LAUNCHES, fkvel.LAUNCHES)
+    before = (riccati.LAUNCHES, fkvel.LAUNCHES, rollout.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA device"):
         call(toy_problem)
-    assert (riccati.LAUNCHES, fkvel.LAUNCHES) == before
+    assert (riccati.LAUNCHES, fkvel.LAUNCHES, rollout.LAUNCHES) == before
     assert "lib" not in _lib._state
 
 
-@pytest.mark.parametrize("backend_of", ["riccati", "fkvel"])
+@pytest.mark.parametrize("backend_of", ["riccati", "fkvel", "rollout"])
 def test_unknown_backend_raises(backend_of, toy_problem):
     lq, dx0 = _cpu_lq()
     with pytest.raises(ValueError, match="unknown"):
         if backend_of == "riccati":
             riccati.riccati_rollout(lq, dx0, backend="xla")
+        elif backend_of == "rollout":
+            rollout.forward_rollout(lq, types.SimpleNamespace(K=lq.Qux, k=lq.qu), dx0,
+                                    backend="xla")
         else:
             q = torch.zeros(2, toy_problem.model.robot.nq, dtype=torch.float64)
             fkvel.fkvel_batch(toy_problem.model.robot, q, q, backend="xla")
 
 
-@pytest.mark.parametrize("field,value", [("equality_handling", "al"), ("line_search", "merit"),
-                                         ("sensitivity", "exact"), ("sensitivity", "midpoint"),
-                                         ("parallel_riccati", True)])
-def test_unported_options_raise(field, value, toy_problem):
+@pytest.mark.parametrize("field,value", [("equality_handling", "penalty"),
+                                         ("line_search", "armijo"), ("sensitivity", "euler")])
+def test_unknown_config_value_raises(field, value, toy_problem):
     pb = toy_problem
     cfg = SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")
+    for make in (make_sqp_solver, make_staged_sqp_solver):
+        with pytest.raises(ValueError, match=field):
+            make(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")

@@ -15,7 +15,8 @@ import torch
 
 from wb_humanoid_mpc_tpu_torch.models.robot.urdf import Frame, RobotModel
 from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams
-from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+from wb_humanoid_mpc_tpu_torch.solver.riccati import RiccatiSolution
+from wb_humanoid_mpc_tpu_torch.solver.transcription import LQApprox, Trajectory
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
 
 _ROBOT_ARRAYS = ("joint_parent_body", "joint_R", "joint_p", "joint_axis", "joint_lower",
@@ -62,3 +63,23 @@ def trajectory_from_numpy(xs, us, *, device="cuda", dtype=torch.float32) -> Traj
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=dev)
 
     return Trajectory(xs=t(xs), us=t(us))
+
+
+def _tensors(fields, arrays, device, dtype) -> dict:
+    """{field: tensor} for the attributes of `arrays` named in `fields` that
+    it holds and that are not None."""
+    dev = resolve_device(device)
+    return {f: torch.as_tensor(np.array(getattr(arrays, f), dtype=np.float64), dtype=dtype,
+                               device=dev)
+            for f in fields if getattr(arrays, f, None) is not None}
+
+
+def lq_from_numpy(lq, *, device="cuda", dtype=torch.float32) -> LQApprox:
+    """LQApprox from an object (for example the JAX `LQApprox`) whose
+    `LQApprox` attributes are arrays; attributes that are absent or None stay None."""
+    return LQApprox(**_tensors(LQApprox._fields, lq, device, dtype))
+
+
+def riccati_solution_from_numpy(sol, *, device="cuda", dtype=torch.float32) -> RiccatiSolution:
+    """RiccatiSolution (K, k, P, p) from an object with those arrays as attributes."""
+    return RiccatiSolution(**_tensors(RiccatiSolution._fields, sol, device, dtype))

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "wbmpc_fkvel_f64": [_P] * 7 + [_D] + [_P] * 5 + [_I, _I, _P],
     "wbmpc_riccati_rollout_f32": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_riccati_rollout_f64": [_P] * 15 + [_I] * 4 + [_D, _P],
+    "wbmpc_forward_rollout_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "wbmpc_forward_rollout_f64": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

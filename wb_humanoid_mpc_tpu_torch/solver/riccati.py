@@ -32,6 +32,8 @@ def levenberg_damp(lq, reg: float):
 class RiccatiSolution(NamedTuple):
     K: torch.Tensor   # [..., N, nu, nx]
     k: torch.Tensor   # [..., N, nu]
+    P: torch.Tensor   # [..., N+1, nx, nx]  value Hessians (P_N = QN)
+    p: torch.Tensor   # [..., N+1, nx]      value gradients (p_N = qN)
 
 
 def _mv(M, x):
@@ -45,6 +47,7 @@ def backward_pass(lq, reg: float = 1e-8) -> RiccatiSolution:
     eyeu = torch.eye(nu, dtype=lq.B.dtype, device=lq.B.device)
     P, p = lq.QN, lq.qN
     Ks, ks = [None] * N, [None] * N
+    Ps, ps = [None] * N + [P], [None] * N + [p]
     for i in reversed(range(N)):
         A, B, d = lq.A[..., i, :, :], lq.B[..., i, :, :], lq.d[..., i, :]
         At, Bt = A.transpose(-1, -2), B.transpose(-1, -2)
@@ -65,8 +68,9 @@ def backward_pass(lq, reg: float = 1e-8) -> RiccatiSolution:
         P = Qxx_h + Qux_h.transpose(-1, -2) @ K
         P = 0.5 * (P + P.transpose(-1, -2))
         p = Qx + _mv(Qux_h.transpose(-1, -2), kff)
-        Ks[i], ks[i] = K, kff
-    return RiccatiSolution(K=torch.stack(Ks, dim=-3), k=torch.stack(ks, dim=-2))
+        Ks[i], ks[i], Ps[i], ps[i] = K, kff, P, p
+    return RiccatiSolution(K=torch.stack(Ks, dim=-3), k=torch.stack(ks, dim=-2),
+                           P=torch.stack(Ps, dim=-3), p=torch.stack(ps, dim=-2))
 
 
 def forward_pass(lq, sol: RiccatiSolution, dx0) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,25 +1,31 @@
-"""SQP solver: projection + filter line-search path.
+"""SQP solver.
 
-PyTorch counterpart of `make_sqp_solver` in `wb_humanoid_mpc_tpu/solver/sqp.py`.
-Per iteration:
+PyTorch counterpart of `wb_humanoid_mpc_tpu/solver/sqp.py`. Per iteration:
   1. batched LQ approximation (one linearization of every node at once)
-  2. equality projection onto the constraint null space, relative Levenberg
-     damping, and the fused Riccati + rollout (the CUDA kernel `ops/riccati.py`
-     on the card, one launch)
-  3. control recovery du = L dx + Z dz + w
-  4. filter line search: the two largest steps are evaluated together, and
-     the rest of the ladder only when both fail.
+  2. the LQ solve, by one of:
+     - equality projection onto the constraint null space + relative
+       Levenberg damping (the default), or the AL path (the full LQ at
+       rho, damped);
+     - then the fused Riccati + rollout (the CUDA kernel `ops/riccati.py`
+       on the card, one launch) or the associative-scan pair
+       (`solver/priccati.py`, `parallel_riccati`);
+  3. control recovery du = L dx + Z dz + w (projection path)
+  4. line search: the ocs2 filter (the two largest steps evaluated together,
+     the rest of the ladder only when both fail) or the AL merit (all steps
+     at once, the largest that decreases the merit)
+  5. the safeguarded, clamped AL multiplier update (AL path only).
+
+`make_staged_sqp_solver` runs the same iteration phase by phase and returns
+each phase's wall time (the reference's benchmark contract).
 
 JAX fuses an iteration into one XLA program; the port runs eagerly (no
-`torch.compile`, no CUDA graphs yet). The options the JAX config has and the
-port does not (the AL equality path, the merit line search, the
-associative-scan Riccati, the "exact" and "midpoint" sensitivities) raise
-`NotImplementedError` instead of being ignored.
+`torch.compile`, no CUDA graphs yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -28,6 +34,10 @@ from torch.profiler import record_function
 from wb_humanoid_mpc_tpu_torch.ocp.base import BarrierParams
 from wb_humanoid_mpc_tpu_torch.ops.riccati import riccati_rollout
 from wb_humanoid_mpc_tpu_torch.solver.linesearch import filter_accept
+from wb_humanoid_mpc_tpu_torch.solver.priccati import (
+    parallel_backward_pass,
+    parallel_forward_pass,
+)
 from wb_humanoid_mpc_tpu_torch.solver.projection import project_lq, recover_controls
 from wb_humanoid_mpc_tpu_torch.solver.riccati import levenberg_damp
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory, make_lq_functions
@@ -36,7 +46,7 @@ from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
 
 class SqpSolution(NamedTuple):
     traj: Trajectory
-    lam: torch.Tensor        # [N, n_eq] multipliers (unchanged on the projection path)
+    lam: torch.Tensor        # [N, n_eq] AL multipliers (unchanged on the projection path)
     cost: torch.Tensor
     g_norm: torch.Tensor     # max |equality residual|
     defect_norm: torch.Tensor
@@ -46,10 +56,8 @@ class SqpSolution(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SqpSolverConfig:
-    """The fields of the JAX `SqpSolverConfig` that the projection + filter
-    path reads (see that class for each one), and the four that select a
-    path the port does not have yet (any other value raises). The AL and
-    merit fields come with those paths."""
+    """The JAX `SqpSolverConfig` (see that class for each field), with the
+    port's two backend fields."""
     n_nodes: int
     dt: float
     sqp_iterations: int = 1
@@ -57,31 +65,76 @@ class SqpSolverConfig:
     reg: float = 1e-2
     reg_num: float = 1e-8
     alphas: tuple = (1.0, 0.7, 0.5, 0.3, 0.2, 0.1, 0.05, 0.01)
+    defect_weight: float = 1e2
     parallel_riccati: bool = False
-    equality_handling: str = "projection"
+    lam_max: float = 1e4
+    al_decrease: float = 0.9
+    al_update_threshold: float = 0.5
+    equality_handling: str = "projection"   # "projection" | "al"
     proj_eps: float = 1e-8
-    sensitivity: str = "node"
-    line_search: str = "filter"
+    sensitivity: str = "node"                # "node" | "midpoint" | "exact"
+    line_search: str = "filter"              # "filter" | "merit"
     filter_g_max: float = 1e-2
     filter_g_min: float = 1e-6
     # "auto": the CUDA Riccati kernel for CUDA tensors, the plain version for
     # CPU tensors; "cuda" | "plain" force one (ops/riccati.py)
     rollout_backend: str = "auto"
-    # the same for the FK + velocity tree pass of the RK4 tail (ops/fkvel.py)
+    # the same for the FK + velocity tree pass of the RK4 tail and the line
+    # search (ops/fkvel.py)
     flow_backend: str = "auto"
 
 
-def _check_ported(cfg: SqpSolverConfig) -> None:
-    unported = {
-        "equality_handling": (cfg.equality_handling, "projection"),
-        "line_search": (cfg.line_search, "filter"),
-        "sensitivity": (cfg.sensitivity, "node"),
-        "parallel_riccati": (cfg.parallel_riccati, False),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(f"SqpSolverConfig.{name}={value!r} is not ported yet "
-                                      f"(only {ported!r})")
+class PhaseTimings(NamedTuple):
+    """Per-solve wall times by phase [s], summed over the SQP iterations: the
+    reference's `SqpSolver::Benchmarks` (lq <-> linearQuadraticApproximationTime,
+    projection + riccati <-> solveQpTime, linesearch <-> linesearchTime)."""
+    lq: float
+    projection: float
+    riccati: float
+    linesearch: float
+
+
+def _check_config(cfg: SqpSolverConfig) -> None:
+    for name, allowed in (("equality_handling", ("projection", "al")),
+                          ("line_search", ("filter", "merit")),
+                          ("sensitivity", ("node", "midpoint", "exact"))):
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"SqpSolverConfig.{name}={getattr(cfg, name)!r}: expected one of "
+                             f"{allowed}")
+
+
+def _lq_functions(ocp, flow, bp, cfg):
+    model = getattr(ocp, "model", None)
+    fmb = getattr(model, "flow_map_batch", None)
+    flow_batch = (None if fmb is None
+                  else (lambda ts, xs, us: fmb(ts, xs, us, backend=cfg.flow_backend)))
+    return make_lq_functions(ocp, flow, cfg.dt, cfg.n_nodes, bp, sensitivity=cfg.sensitivity,
+                             flow_batch=flow_batch)
+
+
+def _rho_lq(cfg: SqpSolverConfig) -> float:
+    # With exact projection the equality penalty must not dominate the LQ
+    # cost (see the JAX solver): a unit weight on the projection path; the
+    # AL path keeps the full rho. The merit always uses cfg.rho.
+    return cfg.rho if cfg.equality_handling == "al" else min(cfg.rho, 1.0)
+
+
+def _solve_lq(lq, dx0, cfg: SqpSolverConfig):
+    """The damped LQ's (dxs, dus): the fused kernel path or the scan pair."""
+    if cfg.parallel_riccati:
+        sol = parallel_backward_pass(lq, cfg.reg_num)
+        return parallel_forward_pass(lq, sol, dx0)
+    return riccati_rollout(lq, dx0, cfg.reg_num, cfg.rollout_backend)
+
+
+def _times(t0, x0, cfg):
+    return t0 + cfg.dt * torch.arange(cfg.n_nodes + 1, dtype=x0.dtype, device=x0.device)
+
+
+def _step(traj, alpha, dxs, dus) -> Trajectory:
+    """traj + alpha (dxs, dus); alpha a scalar or [B] (one candidate each)."""
+    a = alpha[..., None, None]
+    return Trajectory(xs=traj.xs + a * dxs, us=traj.us + a * dus)
 
 
 def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
@@ -90,68 +143,165 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
 
     Every tensor passed to `solve` lies on `device` (the CUDA card unless the
     caller asks for the CPU)."""
-    _check_ported(cfg)
+    _check_config(cfg)
     dev = resolve_device(device)
-    model = getattr(ocp, "model", None)
-    fmb = getattr(model, "flow_map_batch", None)
-    flow_batch = (None if fmb is None
-                  else (lambda ts, xs, us: fmb(ts, xs, us, backend=cfg.flow_backend)))
-    lq_approx, eq_fn, candidate_perf, _ = make_lq_functions(
-        ocp, flow, cfg.dt, cfg.n_nodes, bp, flow_batch=flow_batch)
-    # unit equality weight in the LQ on the projection path (see the JAX solver)
-    rho_lq = min(cfg.rho, 1.0)
+    fns = _lq_functions(ocp, flow, bp, cfg)
+    rho_lq = _rho_lq(cfg)
     n_hi = 2
 
-    def sqp_iteration(traj, times, params, lam, x0, alphas):
+    def merit(traj, times, params, lam):
+        c, _ = fns.total_cost(traj, times, params, lam, cfg.rho)
+        d = fns.defects(traj, times)
+        return c + cfg.defect_weight * torch.sum(torch.abs(d), dim=(-2, -1))
+
+    def sqp_iteration(traj, lam, g_prev, times, params, x0, alphas):
         # the ranges name the phases in a torch.profiler trace
         # (wb_humanoid_mpc_tpu_torch/tools/profile_sqp.py)
         with record_function("sqp.lq"):
-            lq = lq_approx(traj, times, params, lam, rho_lq)
+            lq = fns.lq_approximation(traj, times, params, lam, rho_lq)
         dx0 = x0 - traj.xs[0]
-        with record_function("sqp.projection"):
-            reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
-            reduced = levenberg_damp(reduced, cfg.reg)
-        with record_function("sqp.riccati"):
-            dxs, dzs = riccati_rollout(reduced, dx0, cfg.reg_num, cfg.rollout_backend)
-            dus = recover_controls(proj, dxs, dzs)
-
-        # ocs2 FilterLinesearch: the largest accepted step wins. The baseline
-        # (c0, v0) comes with the LQ pass; the top-2 steps are tried first.
-        c0, v0 = lq.cost_pure, lq.viol
-
-        def try_alphas(a):
-            cand = Trajectory(xs=traj.xs + a[:, None, None] * dxs,
-                              us=traj.us + a[:, None, None] * dus)
-            cs, vs = candidate_perf(cand, times, params)
-            return filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
+        if cfg.equality_handling == "projection":
+            with record_function("sqp.projection"):
+                reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
+                reduced = levenberg_damp(reduced, cfg.reg)
+            with record_function("sqp.riccati"):
+                dxs, dzs = _solve_lq(reduced, dx0, cfg)
+                dus = recover_controls(proj, dxs, dzs)
+        else:
+            with record_function("sqp.riccati"):
+                # the unprojected LQ (nu = 35 on humanoid23) through K1
+                dxs, dus = _solve_lq(levenberg_damp(lq, cfg.reg), dx0, cfg)
 
         with record_function("sqp.linesearch"):
-            ok_hi = try_alphas(alphas[:n_hi])
-            # JAX takes this branch with lax.cond on the device; here it is
-            # one host sync per iteration
-            if bool(ok_hi.any()):
-                ok_lo = torch.zeros(alphas.shape[0] - n_hi, dtype=torch.bool,
-                                    device=alphas.device)
+            if cfg.line_search == "filter":
+                # ocs2 FilterLinesearch: the largest accepted step wins. The
+                # baseline (c0, v0) comes with the LQ pass; the top-2 steps
+                # are tried first.
+                c0, v0 = lq.cost_pure, lq.viol
+
+                def try_alphas(a):
+                    cs, vs = fns.candidate_perf(_step(traj, a, dxs, dus), times, params)
+                    return filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
+
+                ok_hi = try_alphas(alphas[:n_hi])
+                # JAX takes this branch with lax.cond on the device; here it
+                # is one host sync per iteration
+                if bool(ok_hi.any()):
+                    ok_lo = torch.zeros(alphas.shape[0] - n_hi, dtype=torch.bool,
+                                        device=alphas.device)
+                else:
+                    ok_lo = try_alphas(alphas[n_hi:])
+                ok = torch.cat([ok_hi, ok_lo])
+                alpha = alphas[torch.argmax(ok.to(alphas.dtype))] * ok.any().to(alphas.dtype)
             else:
-                ok_lo = try_alphas(alphas[n_hi:])
-            ok = torch.cat([ok_hi, ok_lo])
-            alpha = alphas[torch.argmax(ok.to(alphas.dtype))] * ok.any().to(alphas.dtype)
-            new_traj = Trajectory(xs=traj.xs + alpha * dxs, us=traj.us + alpha * dus)
+                # AL merit: all steps at once (one K2 launch per flow stage
+                # over steps x nodes); the largest step that decreases it
+                merit0 = merit(traj, times, params, lam)
+                merits = merit(_step(traj, alphas, dxs, dus), times, params, lam)
+                # a candidate that produced NaN/inf must never be selected
+                merits = torch.where(torch.isfinite(merits), merits,
+                                     torch.full_like(merits, float("inf")))
+                ok = merits < merit0
+                best = torch.argmin(merits)
+                pick = torch.where(ok.any(), torch.argmax(ok.to(merits.dtype)), best)
+                alpha = alphas[pick] * (merits[pick] < merit0).to(merits.dtype)
+            new_traj = _step(traj, alpha, dxs, dus)
+
         with record_function("sqp.eq_residuals"):
-            g_max = torch.amax(torch.abs(eq_fn(new_traj, times, params)))
-        return new_traj, (lq.cost, g_max, lq.defect_norm, alpha)
+            g = fns.eq_residuals(new_traj, times, params)
+            g_max = torch.amax(torch.abs(g))
+            if cfg.equality_handling == "al":
+                # safeguarded update: polish when nearly feasible; at large
+                # violation only reward genuine progress; clamped
+                do_update = (g_max < cfg.al_update_threshold) | (g_max < cfg.al_decrease * g_prev)
+                lam = torch.where(do_update, lam + cfg.rho * g, lam)
+                lam = torch.clamp(lam, -cfg.lam_max, cfg.lam_max)
+        return new_traj, lam, g_max, (lq.cost, g_max, lq.defect_norm, alpha)
 
     def solve(t0, x0, init_traj: Trajectory, params, lam) -> SqpSolution:
         if x0.device != dev or init_traj.xs.device != dev:
             raise ValueError(f"solver built for {dev}, got tensors on {x0.device}")
-        times = t0 + cfg.dt * torch.arange(cfg.n_nodes + 1, dtype=x0.dtype, device=dev)
+        times = _times(t0, x0, cfg)
         alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
         traj, stats = init_traj, None
+        g_prev = (torch.amax(torch.abs(fns.eq_residuals(init_traj, times, params)))
+                  if cfg.equality_handling == "al" else None)
         for _ in range(cfg.sqp_iterations):
-            traj, stats = sqp_iteration(traj, times, params, lam, x0, alphas)
+            traj, lam, g_prev, stats = sqp_iteration(traj, lam, g_prev, times, params, x0,
+                                                     alphas)
         cost, g_norm, defect_norm, alpha = stats
         return SqpSolution(traj=traj, lam=lam, cost=cost, g_norm=g_norm,
                            defect_norm=defect_norm, step_size=alpha,
                            iterations=cfg.sqp_iterations)
+
+    return solve
+
+
+def make_staged_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
+                           device="cuda") -> Callable:
+    """Per-phase-timed SQP solve (the diagnostic twin of `make_sqp_solver`,
+    projection path only). Each phase ends with `torch.cuda.synchronize()` on
+    the card (JAX's `block_until_ready`), so its wall time includes its device
+    time; on the CPU nothing is asynchronous. The filter line search
+    evaluates all steps at once (the same rule as the two-stage ladder).
+
+    Returns solve(t0, x0, init_traj, params, lam) -> (SqpSolution, PhaseTimings)."""
+    _check_config(cfg)
+    if cfg.equality_handling != "projection":
+        raise ValueError("staged solver only implements the projection path")
+    dev = resolve_device(device)
+    fns = _lq_functions(ocp, flow, bp, cfg)
+    rho_lq = _rho_lq(cfg)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        return out, time.perf_counter() - t0
+
+    def f_project(lq):
+        reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
+        return levenberg_damp(reduced, cfg.reg), proj
+
+    def f_riccati(reduced, proj, dx0):
+        dxs, dzs = _solve_lq(reduced, dx0, cfg)
+        return dxs, recover_controls(proj, dxs, dzs)
+
+    def f_linesearch(traj, times, params, c0, v0, dxs, dus, alphas):
+        cs, vs = fns.candidate_perf(_step(traj, alphas, dxs, dus), times, params)
+        ok = filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
+        alpha = alphas[torch.argmax(ok.to(alphas.dtype))] * ok.any().to(alphas.dtype)
+        new_traj = _step(traj, alpha, dxs, dus)
+        g = fns.eq_residuals(new_traj, times, params)
+        return new_traj, alpha, torch.amax(torch.abs(g))
+
+    def solve(t0, x0, init_traj: Trajectory, params, lam):
+        if x0.device != dev or init_traj.xs.device != dev:
+            raise ValueError(f"solver built for {dev}, got tensors on {x0.device}")
+        times = _times(t0, x0, cfg)
+        alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
+        traj = init_traj
+        spent = dict(lq=0.0, projection=0.0, riccati=0.0, linesearch=0.0)
+        alpha = g_max = torch.zeros((), dtype=x0.dtype, device=dev)
+        lq = None
+        for _ in range(cfg.sqp_iterations):
+            lq, t = timed(fns.lq_approximation, traj, times, params, lam, rho_lq)
+            spent["lq"] += t
+            (reduced, proj), t = timed(f_project, lq)
+            spent["projection"] += t
+            (dxs, dus), t = timed(f_riccati, reduced, proj, x0 - traj.xs[0])
+            spent["riccati"] += t
+            (traj, alpha, g_max), t = timed(f_linesearch, traj, times, params, lq.cost_pure,
+                                            lq.viol, dxs, dus, alphas)
+            spent["linesearch"] += t
+        d = fns.defects(traj, times)
+        sol = SqpSolution(traj=traj, lam=lam, cost=lq.cost, g_norm=g_max,
+                          defect_norm=torch.amax(torch.abs(d)), step_size=alpha,
+                          iterations=cfg.sqp_iterations)
+        return sol, PhaseTimings(**spent)
 
     return solve

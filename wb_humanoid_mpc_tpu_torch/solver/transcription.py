@@ -1,9 +1,10 @@
 """Multiple-shooting transcription + LQ approximation.
 
-PyTorch counterpart of `wb_humanoid_mpc_tpu/solver/transcription.py` in its
-production mode: `sensitivity="node"` with the RK4 tail finished at the
-batched level (`external_tail=True`). Per node, the continuous dynamics and
-the cost/constraint terms (`ocp.fused_node`) are linearized once at the node:
+PyTorch counterpart of `wb_humanoid_mpc_tpu/solver/transcription.py`, with
+its three sensitivity modes. In the production mode, `sensitivity="node"`
+(the RK4 tail finished at the batched level, JAX's `external_tail=True`), the
+continuous dynamics and the cost/constraint terms (`ocp.fused_node`) are
+linearized once at the node:
 
     x-pass: torch.func.vmap over the nx identity tangents of torch.func.jvp
             (JAX: jax.vmap(jvp_x)(eye_x) after jax.linearize)
@@ -15,9 +16,14 @@ Gamma = h (I + hA/2 + (hA)^2/6 + (hA)^3/24) B. The primal step is exact RK4:
 k1 comes with the linearization, k2..k4 from `flow_batch` over all nodes at
 once (the CUDA FK kernel on the card, `models/wb_model.py::flow_map_batch`).
 
+"midpoint" relinearizes the per-sample flow at the RK4 midpoint
+x + h/2 k1 for A and B; "exact" differentiates the whole RK4 step and the
+node terms over z = (x, u) (jacfwd: one jvp per identity tangent of z). Both
+finish RK4 inside the node function with the differentiable per-sample
+`flow`, as JAX does with `external_tail=False`.
+
 Where JAX `vmap`s the node function over nodes, the port passes [N, ...]
 tensors to the batched `fused_node`; the tangent batch is the only `vmap`.
-The "exact" and "midpoint" sensitivities are not ported yet.
 """
 
 from __future__ import annotations
@@ -124,14 +130,57 @@ def _tangent_jacobians(f, primal, n):
     return outs, tuple(torch.movedim(j, 0, -1) for j in jac)
 
 
-def make_node_lq(ocp, dt: float, bp: BarrierParams) -> Callable:
+def make_node_lq(ocp, flow, dt: float, bp: BarrierParams,
+                 sensitivity: str = "exact") -> Callable:
     """Batched node LQ builder: (t [N], x [N,nx], u [N,nu], params [N,...], lam
-    [N,nc], rho) -> the 15-tuple of JAX's `make_node_lq` in its
-    ("node", external_tail) mode, each with a leading N:
-    (A_d, B_d, k1, Qxx, Quu, Qux, qx, qu, cost, g_max, g, Cx, Du, cost_pure, g_sse).
-    k1 fills the x_next slot; the caller finishes RK4 with a batched flow."""
+    [N,nc], rho) -> the 15-tuple of JAX's `make_node_lq`, each with a leading N:
+    (A_d, B_d, x_next, Qxx, Quu, Qux, qx, qu, cost, g_max, g, Cx, Du, cost_pure,
+    g_sse).
 
-    def node_lq(t, x, u, p, lam, rho):
+    sensitivity (see JAX's `make_node_lq`): "exact" differentiates the full
+    RK4 step; "node" freezes A, B at the node; "midpoint" at the RK4
+    midpoint. With "node", k1 fills the x_next slot and the caller finishes
+    RK4 with a batched flow (JAX's `external_tail=True`)."""
+    if sensitivity not in ("exact", "node", "midpoint"):
+        raise ValueError(f"unknown sensitivity mode {sensitivity!r}")
+    if not hasattr(ocp, "fused_node"):
+        raise NotImplementedError("the port linearizes through ocp.fused_node only")
+
+    def rk4_tail(t, x, u, k1, k2=None):
+        """x_next from k1 (and k2, where the caller has it) with the per-sample flow."""
+        if k2 is None:
+            k2 = flow(t + 0.5 * dt, x + 0.5 * dt * k1, u)
+        k3 = flow(t + 0.5 * dt, x + 0.5 * dt * k2, u)
+        k4 = flow(t + dt, x + dt * k3, u)
+        return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    def finish(x_next, A_d, B_d, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho, nx):
+        grad, Hess = _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho)
+        terms = _Terms(r, h_log, hmask, h_quad, g)
+        cost = node_cost_terms(terms, bp, lam, rho)
+        c_pure = node_cost_terms(terms, bp, torch.zeros_like(g), 1e-12)
+        return (A_d, B_d, x_next,
+                Hess[..., :nx, :nx], Hess[..., nx:, nx:], Hess[..., nx:, :nx],
+                grad[..., :nx], grad[..., nx:], cost, torch.amax(torch.abs(g), dim=-1),
+                g, Jg[..., :nx], Jg[..., nx:], c_pure, torch.sum(g ** 2, dim=-1))
+
+    def node_lq_exact(t, x, u, p, lam, rho):
+        nx, nu = x.shape[-1], u.shape[-1]
+
+        def fz(z_):
+            x_, u_ = z_[..., :nx], z_[..., nx:]
+            # the node terms and k1 share one rigid-body pass (JAX evaluates
+            # `node_terms` and `rk4_step(flow, ..)` apart: the same values)
+            terms, k1 = ocp.fused_node(t, x_, u_, p)
+            return (terms.r, terms.h_log, terms.h_quad, terms.g, rk4_tail(t, x_, u_, k1),
+                    terms.h_log_mask)
+
+        (r, h_log, h_quad, g, x_next, hmask), (Jr, Jhl, Jhq, Jg, Jf, _) = _tangent_jacobians(
+            fz, torch.cat([x, u], dim=-1), nx + nu)
+        return finish(x_next, Jf[..., :nx], Jf[..., nx:], r, h_log, h_quad, g, hmask,
+                      Jr, Jhl, Jhq, Jg, lam, rho, nx)
+
+    def node_lq_fused(t, x, u, p, lam, rho):
         nx, nu = x.shape[-1], u.shape[-1]
 
         def fx(x_):
@@ -149,6 +198,15 @@ def make_node_lq(ocp, dt: float, bp: BarrierParams) -> Callable:
         _, Ju = _tangent_jacobians(fu, u, nu)
         Jr_u, Jhl_u, Jhq_u, Jg_u, Bc = Ju
 
+        if sensitivity == "node":
+            x_next = k1      # the caller completes the RK4 step with a batched flow
+        else:
+            # "midpoint": relinearize the flow at the RK4 midpoint (x-pass + u-pass)
+            x_mid, t_mid = x + 0.5 * dt * k1, t + 0.5 * dt
+            (k2,), (Ac,) = _tangent_jacobians(lambda x_: (flow(t_mid, x_, u),), x_mid, nx)
+            _, (Bc,) = _tangent_jacobians(lambda u_: (flow(t_mid, x_mid, u_),), u, nu)
+            x_next = rk4_tail(t, x, u, k1, k2)
+
         eye = torch.eye(nx, dtype=x.dtype, device=x.device)
         hA = dt * Ac
         S = eye + (hA / 2.0) @ (eye + (hA / 3.0) @ (eye + hA / 4.0))
@@ -158,16 +216,10 @@ def make_node_lq(ocp, dt: float, bp: BarrierParams) -> Callable:
         Jhl = torch.cat([Jhl_x, Jhl_u], dim=-1)
         Jhq = torch.cat([Jhq_x, Jhq_u], dim=-1)
         Jg = torch.cat([Jg_x, Jg_u], dim=-1)
-        grad, Hess = _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho)
-        terms = _Terms(r, h_log, hmask, h_quad, g)
-        cost = node_cost_terms(terms, bp, lam, rho)
-        c_pure = node_cost_terms(terms, bp, torch.zeros_like(g), 1e-12)
-        return (A_d, B_d, k1,
-                Hess[..., :nx, :nx], Hess[..., nx:, nx:], Hess[..., nx:, :nx],
-                grad[..., :nx], grad[..., nx:], cost, torch.amax(torch.abs(g), dim=-1),
-                g, Jg_x, Jg_u, c_pure, torch.sum(g ** 2, dim=-1))
+        return finish(x_next, A_d, B_d, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho,
+                      nx)
 
-    return node_lq
+    return node_lq_exact if sensitivity == "exact" else node_lq_fused
 
 
 def _stage(params):
@@ -178,42 +230,57 @@ def _last(params):
     return type(params)(*(a[-1] for a in params))
 
 
-def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams, flow_batch=None):
-    """Returns (lq_approximation, eq_residuals, candidate_perf, defects) over
-    full [N(+1), ...] trajectories (see `make_node_lq`).
+class LQFunctions(NamedTuple):
+    """The closures of `make_lq_functions`, in JAX's order."""
+    lq_approximation: Callable
+    total_cost: Callable
+    defects: Callable
+    eq_residuals: Callable
+    cost_and_violation: Callable
+    candidate_perf: Callable
+
+
+def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
+                      sensitivity: str = "exact", flow_batch=None) -> LQFunctions:
+    """The six closures of JAX's `make_lq_functions` over full [N(+1), ...]
+    trajectories (see `make_node_lq` for the per-node contract and the
+    sensitivity modes). `total_cost`, `defects`, `eq_residuals`,
+    `cost_and_violation` and `candidate_perf` also take trajectories with
+    leading candidate dims and return one value per candidate.
 
     flow_batch(ts [B], xs [B,nx], us [B,nu]) -> xdots [B,nx] runs the pure RK4
-    stages and rollouts outside the linearization; the default is the
-    batched `flow`, which is mathematically identical.
+    stages and rollouts outside the linearization (the CUDA FK kernel on the
+    card, `models/wb_model.py::flow_map_batch`); the default is the batched
+    `flow`, which is mathematically identical.
     """
-    if not hasattr(ocp, "fused_node"):
-        raise NotImplementedError("the port linearizes through ocp.fused_node only")
     if flow_batch is None:
         flow_batch = flow
-    node_lq = make_node_lq(ocp, dt, bp)
+    node_lq = make_node_lq(ocp, flow, dt, bp, sensitivity)
+
+    def fb(ts, xs, us):
+        """flow_batch over xs/us with any leading dims, flattened into one batch."""
+        shape = xs.shape
+        out = flow_batch(ts.expand(shape[:-1]).reshape(-1), xs.reshape(-1, shape[-1]),
+                         us.reshape(-1, us.shape[-1]))
+        return out.reshape(shape)
 
     def rk4_tail(times_s, xs_s, us, k1):
-        """Finish RK4 from k1 at the batched level (3 flow_batch calls). Leading
-        dims of xs_s/us/k1 are flattened into one batch."""
-        shape = xs_s.shape
-
-        def fb(ts, xs):
-            lead = xs.shape[:-1]
-            out = flow_batch(ts.expand(lead).reshape(-1), xs.reshape(-1, shape[-1]),
-                             us.reshape(-1, us.shape[-1]))
-            return out.reshape(shape)
-
-        k2 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k1)
-        k3 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k2)
-        k4 = fb(times_s + dt, xs_s + dt * k3)
+        """Finish RK4 from k1 at the batched level (3 flow_batch calls)."""
+        k2 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k1, us)
+        k3 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k2, us)
+        k4 = fb(times_s + dt, xs_s + dt * k3, us)
         return xs_s + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    def terminal(traj, times, params):
+        return ocp.terminal_residual(times[-1], traj.xs[..., -1, :], _last(params))
 
     def lq_approximation(traj: Trajectory, times, params, lam, rho) -> LQApprox:
         xs, us = traj.xs, traj.us
-        (A, B, k1, Qxx, Quu, Qux, qx, qu, costs, gmax,
+        (A, B, x_next, Qxx, Quu, Qux, qx, qu, costs, gmax,
          g_res, Cx, Du, c_pure, g_sse) = node_lq(times[:-1], xs[:-1], us, _stage(params),
                                                  lam, rho)
-        x_next = rk4_tail(times[:-1], xs[:-1], us, k1)
+        if sensitivity == "node":
+            x_next = rk4_tail(times[:-1], xs[:-1], us, x_next)   # the slot held k1
         d = x_next - xs[1:]
 
         # terminal quadratic (the residual is linear in x: its Jacobian is
@@ -237,8 +304,31 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams, flow_batc
                         cost_pure=torch.sum(c_pure) + term,
                         viol=torch.sqrt(torch.sum(g_sse) + torch.sum(d ** 2)))
 
+    def total_cost(traj: Trajectory, times, params, lam, rho):
+        """(nonlinear cost + AL terms, max |g|): the line-search merit's cost."""
+        terms = ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params))
+        costs = node_cost_terms(terms, bp, lam, rho)
+        rT = terminal(traj, times, params)
+        return (torch.sum(costs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
+                torch.amax(torch.abs(terms.g), dim=(-2, -1)))
+
+    def cost_and_violation(traj: Trajectory, times, params):
+        """(pure cost incl. barriers, SSE of equality residuals, max |g|): the
+        ocs2 PerformanceIndex pieces of the filter line search."""
+        terms = ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params))
+        costs = node_cost_terms(terms, bp, torch.zeros_like(terms.g), 1e-12)
+        rT = terminal(traj, times, params)
+        return (torch.sum(costs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
+                torch.sum(terms.g ** 2, dim=(-2, -1)),
+                torch.amax(torch.abs(terms.g), dim=(-2, -1)))
+
+    def defects(traj: Trajectory, times):
+        xs, us = traj.xs[..., :-1, :], traj.us
+        k1 = fb(times[:-1], xs, us)
+        return rk4_tail(times[:-1], xs, us, k1) - traj.xs[..., 1:, :]
+
     def eq_residuals(traj: Trajectory, times, params):
-        return ocp.node_terms(times[:-1], traj.xs[:-1], traj.us, _stage(params)).g
+        return ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params)).g
 
     def candidate_perf(traj: Trajectory, times, params):
         """(pure cost, total violation) of line-search candidates: traj.xs
@@ -251,12 +341,9 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams, flow_batc
         g_sse = torch.sum(terms.g ** 2, dim=-1)
         x_next = rk4_tail(times[:-1], xs[..., :-1, :], us, k1)
         d = x_next - xs[..., 1:, :]
-        rT = ocp.terminal_residual(times[-1], xs[..., -1, :], _last(params))
+        rT = terminal(traj, times, params)
         return (torch.sum(cs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
                 torch.sqrt(torch.sum(g_sse, dim=-1) + torch.sum(d ** 2, dim=(-2, -1))))
 
-    def defects(traj: Trajectory, times):
-        k1 = flow_batch(times[:-1], traj.xs[:-1], traj.us)
-        return rk4_tail(times[:-1], traj.xs[:-1], traj.us, k1) - traj.xs[1:]
-
-    return lq_approximation, eq_residuals, candidate_perf, defects
+    return LQFunctions(lq_approximation, total_cost, defects, eq_residuals, cost_and_violation,
+                       candidate_perf)
