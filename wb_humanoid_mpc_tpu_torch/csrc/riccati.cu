@@ -1,6 +1,7 @@
 // K1: the whole LQ solve of one multiple-shooting problem in one launch: the
 // backward Riccati recursion over N stages, then the closed-loop forward
-// rollout. One thread block per problem instance; the grid is the batch.
+// rollout. One thread block of 512 threads per problem instance; the grid is
+// the batch.
 //
 // Replaces `wb_humanoid_mpc_tpu/ops/riccati.py::_riccati_kernel` (with
 // `_gj_solve`), the Pallas TPU kernel behind `pallas_riccati_rollout`.
@@ -9,64 +10,283 @@
 //   dx_{k+1} = A_k dx_k + B_k du_k + d_k
 //   stage cost 1/2 dx'Qxx dx + 1/2 du'Quu du + du'Qux dx + qx'dx + qu'du
 //   terminal   1/2 dx'QN dx + qN'dx,   du = K dx + k.
-// Per stage, backwards: Quu_h = Quu + B'PB is damped by reg * max(max diag, 1)
-// on its diagonal and symmetrized (the rule of ops/riccati.py:97-103), then
-// [Quu_h | Qux_h, Qu] is reduced by Gauss-Jordan without pivoting (Quu_h is
-// SPD after the damping), which yields K and k directly; P and p are updated
-// and P symmetrized. The forward rollout then reads K and k back from global
-// memory (written by this block before a __syncthreads).
 //
-// Design. P and p stay in shared memory across the sequential N loop, with
-// PA = P A, PB = P B, the augmented block and Qux_h; each stage's A, B, Qxx,
-// Quu, Qux, qx, qu and d are read from global memory (L1/L2 resident). nx and
-// nu are runtime arguments and the shared memory is sized dynamically
-// (`smem_elems`): 2 nx^2 + 2 nx nu + nu w + 4 nx + nu + w + 1 elements with
-// w = nu + nx + 1, about 44 KB at nx = 58, nu = 21 in f32; f64 or the unprojected nu = 35 case need
-// the opt-in above 48 KB, and more than 227 KB is refused.
+// What it computes, as `_riccati_kernel` does. Per stage, backwards, with
+// M = [B | A | d] (nx x w, w = nu + nx + 1) and the symmetric P:
+//   PM = P M + [0 | 0 | p]                                   (P B, P A, P d + p)
+//   W  = M' PM + [[Quu, Qux, qu], [Qux', Qxx, qx]]
+//      = [[Quu_h, Qux_h, Qu], [Qux_h', Qxx_h, Qx]]            (upper triangle only)
+// Quu_h is damped by reg * max(max diag, 1) on its diagonal (the rule of
+// ops/riccati.py:97-103) and taken symmetric: the stage costs enter as
+// (Q + Q')/2 and B'PB as its upper triangle. An upper Cholesky of the first nu
+// rows of W, [Quu_h | Qux_h | Qu] -> [U | Y | y] with U'U = Quu_h, gives
+//   K = -U^-1 Y,  k = -U^-1 y   (back substitution),
+//   P <- Qxx_h - Y'Y = Qxx_h + Qux_h' K,   p <- Qx - Y'y = Qx + Qux_h' k,
+// the Schur complement, symmetric by construction (P written as its upper
+// triangle and mirrored). P_N is (QN + QN')/2. The forward rollout then
+// reads K and k back. Every sum is taken in the input type (f32 or f64);
+// there is no TF32 anywhere.
 //
-// Bound. At (N, nx, nu) = (28, 58, 21) the recursion does about 1.33 MFLOP a
-// stage (P A, A'PA, P B, B'PB, B'PA, the 21-pivot elimination, Qux_h'K), about
-// 37 MFLOP in all, and moves about 1.2 MB (each stage's data read once, K, k,
-// dxs, dus written once): 0.55 us at 67 TFLOP/s f32, 0.36 us at 3.35 TB/s, so
-// about 0.6 us is the least the card could take. A single block on one SM is
-// latency bound by construction: each stage is a chain of dependent
-// reductions separated by block barriers. A faster design (several instances
-// per block, warp-level tiles or tensor-core mma for the 58x58 products) is
-// later work.
+// Design (one block, 16 warps, everything of a stage in shared memory):
+// 1. Stage data one stage ahead. M of stage s-1 is copied into the second of
+//    two shared buffers with cp.async while stage s computes; Quu, Qux, Qxx,
+//    qu, qx are read once from global memory into registers ahead of the
+//    product they join.
+// 2. Register-tiled products. Each thread accumulates a 4 x 4 tile of
+//    X'Y from 16-byte shared-memory loads: PM = P'M (P symmetric), then only
+//    the upper tiles of W = M'PM, then only the upper tiles of Y'Y, mirrored
+//    on the write. The three passes over P, M, PM replace the old kernel's
+//    ten.
+// 3. The elimination has no block-wide barrier per pivot. The warps that own
+//    one column each of [Quu_h | Qux_h | Qu] (3 warps at w <= 96) run a
+//    right-looking Cholesky with one named barrier (`bar.sync 1, n`) among
+//    themselves per pivot; row j is scaled one pivot late, so that no row is
+//    read and written in the same step. Each of those warps takes the
+//    damping's max with shuffles. Then the back substitution for K, k (two
+//    warps, a thread per column) and the Y'Y update of P (the other 14 warps)
+//    run side by side.
+// 4. The rollout prefetches stage s+1's M and [K | k] with cp.async and
+//    reduces each row of K and of [B | A | d] in one warp, lane-strided over
+//    shared memory, with a shuffle sum.
+//
+// Shared memory (`make_layout`): [P | p] nx x ldp, the Cholesky rows nu x wp,
+// PM nx x wp, two M buffers, and three short vectors (ldp, wp: nx + 1 and w
+// rounded up to 4). 77 KB at (58, 21) in f32, 190 KB at (58, 35) in f64; a
+// shape beyond 227 KB is refused.
+//
+// Bound. At (N, nx, nu) = (28, 58, 21) in f32 the solve does 38.0 MFLOP and
+// moves 1.25 MB (`chip_smoke.riccati_work`): 0.567 us at 67 TFLOP/s, the
+// card-wide bound. The 28 stages depend on each other and run on one SM,
+// whose share of the peak (67 / 132 = 0.51 TFLOP/s) makes 75 us the one-SM
+// floor (105 us at nu = 35). The measured time and what still holds it back
+// are in PERF.md (K1 row, PR 4).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarp = 32;
+constexpr int kWarps = kThreads / kWarp;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may opt in to on sm_90
 
-__host__ __device__ inline size_t smem_elems(int nx, int nu) {
-  const size_t w = static_cast<size_t>(nu + nx + 1);
-  return 2 * static_cast<size_t>(nx) * nx          // P, PA
-         + static_cast<size_t>(nx) * nu            // PB
-         + static_cast<size_t>(nu) * w             // augmented [Quu_h | Qux_h Qu]
-         + static_cast<size_t>(nu) * nx            // Qux_h
-         + 4 * static_cast<size_t>(nx)             // p, Pd+p, Qx, dx_next
-         + static_cast<size_t>(nu) + w + 1;        // pivot column, pivot row, scale
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+struct Layout {
+  int w, wp, ldp;                                  // w = nu + nx + 1; wp, ldp: w, nx + 1 to 4s
+  size_t pbuf, chol, pm, mbuf, vec, total;         // element offsets and size
+};
+
+__host__ __device__ inline Layout make_layout(int nx, int nu) {
+  Layout L;
+  L.w = nu + nx + 1;
+  L.wp = round_up(L.w, 4);
+  L.ldp = round_up(nx + 1, 4);
+  const size_t x = static_cast<size_t>(nx), u = static_cast<size_t>(nu);
+  const size_t pm = x * L.wp > u * L.ldp ? x * L.wp : u * L.ldp;  // PM, then K, k columns
+  L.pbuf = 0;                                      // [P | p]            nx x ldp
+  L.chol = L.pbuf + x * L.ldp;                     // [Quu_h|Qux_h|Qu]   2 x nu x wp
+  L.pm = L.chol + 2 * u * L.wp;                    // PM                 nx x wp
+  L.mbuf = L.pm + pm;                              // M = [B | A | d]    2 x nx x wp
+  L.vec = L.mbuf + 2 * x * L.wp;                   // 1/U_ii (2); z, z' = [du | dx | 1]
+  L.total = L.vec + 2 * static_cast<size_t>(round_up(nu, 4)) + 2 * static_cast<size_t>(L.wp);
+  return L;
+}
+
+// ---- small device helpers ----
+
+__device__ inline void ld4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ inline void ld4(const double* p, double (&v)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
 template <typename T>
-__global__ void riccati_rollout_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
-                                       const T* __restrict__ d, const T* __restrict__ Qxx,
-                                       const T* __restrict__ Quu, const T* __restrict__ Qux,
-                                       const T* __restrict__ qx, const T* __restrict__ qu,
-                                       const T* __restrict__ QN, const T* __restrict__ qN,
-                                       const T* __restrict__ dx0, T* __restrict__ K,
-                                       T* __restrict__ k, T* __restrict__ dxs,
-                                       T* __restrict__ dus, int N, int nx, int nu, T reg) {
+__device__ inline void ld4_scalar(const T* p, T (&v)[4]) {
+  v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
+}
+
+template <typename T>
+__device__ inline void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async copies 4 or 8 bytes here");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(static_cast<int>(sizeof(T))));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a barrier among the first n threads of the block (n a multiple of 32)
+__device__ inline void named_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+template <typename T>
+__device__ inline T warp_sum(T v) {
+  for (int off = kWarp / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T>
+__device__ inline T warp_max(T v) {
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const T o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+// acc[i][j] += sum_m X[m][r0 + i] Y[m][c0 + j], m < depth: a 4 x 4 tile of X'Y.
+// Vec: both operand rows are 16-byte aligned at r0 and c0.
+template <bool Vec, typename T>
+__device__ inline void tile_xty(const T* X, int ldx, const T* Y, int ldy, int depth, int r0,
+                                int c0, T (&acc)[4][4]) {
+#pragma unroll 2
+  for (int m = 0; m < depth; ++m) {
+    T a[4], b[4];
+    if (Vec) {
+      ld4(X + static_cast<size_t>(m) * ldx + r0, a);
+      ld4(Y + static_cast<size_t>(m) * ldy + c0, b);
+    } else {
+      ld4_scalar(X + static_cast<size_t>(m) * ldx + r0, a);
+      ld4_scalar(Y + static_cast<size_t>(m) * ldy + c0, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+  }
+}
+
+// (R, C) of the t-th tile with C >= R, row by row, in a grid of n_cols tile columns
+__device__ inline void upper_tile(int t, int n_cols, int& R, int& C) {
+  R = 0;
+  while (t >= n_cols - R) {
+    t -= n_cols - R;
+    ++R;
+  }
+  C = R + t;
+}
+
+__device__ inline int upper_tile_count(int n_rows, int n_cols) {
+  return n_rows * n_cols - n_rows * (n_rows - 1) / 2;
+}
+
+// copy stage s's M = [B | A | d] into dst (nx x wp) with cp.async, a warp per
+// row, by the n_warps warps from first_warp on (the caller's among them); one group
+template <typename T>
+__device__ inline void load_stage(T* dst, const T* A, const T* B, const T* d, int nx, int nu,
+                                  int wp, int first_warp, int n_warps) {
+  const int lane = threadIdx.x % kWarp;
+  for (int m = threadIdx.x / kWarp - first_warp; m < nx; m += n_warps) {
+    T* row = dst + m * wp;
+    for (int c = lane; c < nu; c += kWarp) cp_async(row + c, B + m * nu + c);
+    for (int c = lane; c < nx; c += kWarp) cp_async(row + nu + c, A + m * nx + c);
+    if (lane == 0) cp_async(row + nu + nx, d + m);
+  }
+  cp_async_commit();
+}
+
+// the two addresses whose mean is entry (v1, v2), v1 <= v2, of the stage cost
+// [[Quu, Qux, qu], [Qux', Qxx, qx]] (the square blocks taken symmetric; other
+// entries name one address twice)
+template <typename T>
+__device__ inline void stage_cost_at(int v1, int v2, const T* Qxx, const T* Quu, const T* Qux,
+                                     const T* qx, const T* qu, int nx, int nu, const T*& p1,
+                                     const T*& p2) {
+  if (v1 < nu) {
+    if (v2 < nu) {
+      p1 = Quu + v1 * nu + v2;
+      p2 = Quu + v2 * nu + v1;
+    } else {
+      p1 = p2 = v2 < nu + nx ? Qux + v1 * nx + (v2 - nu) : qu + v1;
+    }
+  } else if (v2 < nu + nx) {
+    p1 = Qxx + (v1 - nu) * nx + (v2 - nu);
+    p2 = Qxx + (v2 - nu) * nx + (v1 - nu);
+  } else {
+    p1 = p2 = qx + (v1 - nu);
+  }
+}
+
+__device__ inline float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ inline double rsqrt_t(double x) { return rsqrt(x); }
+
+// K = -U^-1 Y, k = -U^-1 y for one stage, from its Cholesky rows Ch = [U | Y | y]
+// and invd = 1/U_ii: left-looking back substitution, a thread per column of
+// [Y | y] (thread t of n_threads), each solution column kept in X (nu x ldp)
+template <typename T>
+__device__ inline void back_substitute(const T* Ch, const T* invd, T* X, T* Ks, T* ks, int nx,
+                                       int nu, int wp, int ldp, int t, int n_threads) {
+  for (int c = t; c <= nx; c += n_threads) {
+    for (int i = nu - 1; i >= 0; --i) {
+      T a0 = Ch[i * wp + nu + c], a1 = T(0);
+      int l = i + 1;
+#pragma unroll 4
+      for (; l + 1 < nu; l += 2) {
+        a0 -= Ch[i * wp + l] * X[l * ldp + c];
+        a1 -= Ch[i * wp + l + 1] * X[(l + 1) * ldp + c];
+      }
+      if (l < nu) a0 -= Ch[i * wp + l] * X[l * ldp + c];
+      const T x = (a0 + a1) * invd[i];
+      X[i * ldp + c] = x;
+      if (c < nx) {
+        Ks[i * nx + c] = -x;
+      } else {
+        ks[i] = -x;
+      }
+    }
+  }
+}
+
+// rows of M and of [K | k] that one warp keeps in registers in the rollout
+// (4 x 3 and 3 x 2 values a lane: nx <= 64, w <= 96, nu <= 48); anything
+// beyond is read from global memory where it is used
+constexpr int kRowsM = 4, kColsM = 3, kRowsK = 3, kColsK = 2;
+
+template <typename T>
+__device__ inline T stage_m(const T* A, const T* B, const T* d, int s, int r, int c, int nx,
+                            int nu) {
+  const size_t nxx = static_cast<size_t>(nx) * nx, nxu = static_cast<size_t>(nx) * nu;
+  if (c < nu) return B[s * nxu + r * nu + c];
+  if (c < nu + nx) return A[s * nxx + r * nx + (c - nu)];
+  return d[static_cast<size_t>(s) * nx + r];
+}
+
+template <typename T>
+__device__ inline T stage_k(const T* K, const T* k, int s, int i, int c, int nx, int nu) {
+  const size_t nxu = static_cast<size_t>(nx) * nu;
+  return c < nx ? K[s * nxu + i * nx + c] : k[static_cast<size_t>(s) * nu + i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    riccati_rollout_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
+                           const T* __restrict__ d, const T* __restrict__ Qxx,
+                           const T* __restrict__ Quu, const T* __restrict__ Qux,
+                           const T* __restrict__ qx, const T* __restrict__ qu,
+                           const T* __restrict__ QN, const T* __restrict__ qN,
+                           const T* __restrict__ dx0, T* __restrict__ K, T* __restrict__ k,
+                           T* __restrict__ dxs, T* __restrict__ dus, int N, int nx, int nu,
+                           T reg) {
   const size_t inst = blockIdx.x;
   const size_t nxx = static_cast<size_t>(nx) * nx, nxu = static_cast<size_t>(nx) * nu;
+  const size_t nuu = static_cast<size_t>(nu) * nu;
   A += inst * N * nxx;
   Bm += inst * N * nxu;
   d += inst * N * nx;
   Qxx += inst * N * nxx;
-  Quu += inst * N * static_cast<size_t>(nu) * nu;
+  Quu += inst * N * nuu;
   Qux += inst * N * nxu;
   qx += inst * N * nx;
   qu += inst * N * nu;
@@ -78,179 +298,304 @@ __global__ void riccati_rollout_kernel(const T* __restrict__ A, const T* __restr
   dxs += inst * (N + 1) * static_cast<size_t>(nx);
   dus += inst * N * nu;
 
-  const int w = nu + nx + 1;
+  const Layout L = make_layout(nx, nu);
+  const int w = L.w, wp = L.wp, ldp = L.ldp;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* P = reinterpret_cast<T*>(smem_raw);
-  T* PA = P + nxx;
-  T* PB = PA + nxx;
-  T* Aug = PB + nxu;
-  T* Quxh = Aug + static_cast<size_t>(nu) * w;
-  T* p = Quxh + nxu;
-  T* Pdp = p + nx;
-  T* Qx = Pdp + nx;
-  T* dxn = Qx + nx;
-  T* fac = dxn + nx;
-  T* prow = fac + nu;
-  T* scale = prow + w;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* Pb = sm + L.pbuf;     // [P | p]: P full and symmetric, p in column nx
+  T* C0 = sm + L.chol;     // [Quu_h | Qux_h | Qu] (upper), then [U | Y | y]: two buffers,
+  T* C1 = C0 + static_cast<size_t>(nu) * wp;   // one per stage in turn
+  T* PM = sm + L.pm;       // P M + [0 | 0 | p]; then the back substitution's columns
+  T* M0 = sm + L.mbuf;     // M = [B | A | d], two buffers
+  T* M1 = M0 + static_cast<size_t>(nx) * wp;
+  T* D0 = sm + L.vec;      // 1 / U_ii, one buffer per Cholesky buffer
+  T* D1 = D0 + round_up(nu, 4);
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  // Roles in the elimination phase: warps [0, e_warps) eliminate, a thread per
+  // column of [Quu_h | Qux_h | Qu]; the next b_warps back-substitute the stage
+  // before; the rest (c_warps, maybe none) copy in the next stage's M.
+  const int e_warps = round_up(w, kWarp) / kWarp < kWarps ? round_up(w, kWarp) / kWarp : kWarps;
+  const int n_elim = e_warps * kWarp;
+  int b_warps = round_up(nx + 1, kWarp) / kWarp;
+  if (b_warps > kWarps - e_warps) b_warps = kWarps - e_warps;
+  const int c_warps = kWarps - e_warps - b_warps;
 
-  for (int i = tid; i < nx * nx; i += nt) P[i] = QN[i];
-  for (int i = tid; i < nx; i += nt) p[i] = qN[i];
-  __syncthreads();
+  load_stage(M0, A + (N - 1) * nxx, Bm + (N - 1) * nxu, d + static_cast<size_t>(N - 1) * nx,
+             nx, nu, wp, 0, kWarps);
+  for (int e = tid; e < nx * nx; e += kThreads) {
+    const int r = e / nx, c = e - r * nx;
+    Pb[r * ldp + c] = T(0.5) * (QN[r * nx + c] + QN[c * nx + r]);
+  }
+  for (int r = tid; r < nx; r += kThreads) Pb[r * ldp + nx] = qN[r];
 
   // ---- backward Riccati recursion ----
   for (int t = 0; t < N; ++t) {
     const int s = N - 1 - t;
-    const T* As = A + s * nxx;
-    const T* Bs = Bm + s * nxu;
-    const T* ds = d + static_cast<size_t>(s) * nx;
+    const T* Mc = (t & 1) ? M1 : M0;
+    T* Ch = (t & 1) ? C1 : C0;       // this stage's Cholesky rows
+    T* invd = (t & 1) ? D1 : D0;
+    cp_async_wait_all();
+    __syncthreads();   // this stage's M has landed; the last stage's P update is done
+    if (s > 0 && c_warps == 0) {
+      load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
+                 d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, 0, kWarps);
+    }
 
-    // Pd + p, P A, P B (the last reads of P)
-    for (int r = tid; r < nx; r += nt) {
-      T acc = p[r];
-      for (int c = 0; c < nx; ++c) acc += P[r * nx + c] * ds[c];
-      Pdp[r] = acc;
-    }
-    for (int e = tid; e < nx * nx; e += nt) {
-      const int r = e / nx, c = e % nx;
-      T acc = T(0);
-      for (int m = 0; m < nx; ++m) acc += P[r * nx + m] * As[m * nx + c];
-      PA[e] = acc;
-    }
-    for (int e = tid; e < nx * nu; e += nt) {
-      const int r = e / nu, c = e % nu;
-      T acc = T(0);
-      for (int m = 0; m < nx; ++m) acc += P[r * nx + m] * Bs[m * nu + c];
-      PB[e] = acc;
-    }
-    __syncthreads();
-
-    // Qx = qx + A'(Pd+p); Qu = qu + B'(Pd+p) -> last column of Aug
-    for (int r = tid; r < nx; r += nt) {
-      T acc = qx[static_cast<size_t>(s) * nx + r];
-      for (int m = 0; m < nx; ++m) acc += As[m * nx + r] * Pdp[m];
-      Qx[r] = acc;
-    }
-    for (int r = tid; r < nu; r += nt) {
-      T acc = qu[static_cast<size_t>(s) * nu + r];
-      for (int m = 0; m < nx; ++m) acc += Bs[m * nu + r] * Pdp[m];
-      Aug[r * w + nu + nx] = acc;
-    }
-    // Quu_h = Quu + B'PB -> Aug[:, :nu]
-    const T* Quus = Quu + static_cast<size_t>(s) * nu * nu;
-    for (int e = tid; e < nu * nu; e += nt) {
-      const int r = e / nu, c = e % nu;
-      T acc = Quus[e];
-      for (int m = 0; m < nx; ++m) acc += Bs[m * nu + r] * PB[m * nu + c];
-      Aug[r * w + c] = acc;
-    }
-    // Qux_h = Qux + B'PA -> Quxh and Aug[:, nu:nu+nx]
-    const T* Quxs = Qux + s * nxu;
-    for (int e = tid; e < nu * nx; e += nt) {
-      const int r = e / nx, c = e % nx;
-      T acc = Quxs[e];
-      for (int m = 0; m < nx; ++m) acc += Bs[m * nu + r] * PA[m * nx + c];
-      Quxh[e] = acc;
-      Aug[r * w + nu + c] = acc;
-    }
-    // P <- Qxx_h = Qxx + A'PA
-    const T* Qxxs = Qxx + s * nxx;
-    for (int e = tid; e < nx * nx; e += nt) {
-      const int r = e / nx, c = e % nx;
-      T acc = Qxxs[e];
-      for (int m = 0; m < nx; ++m) acc += As[m * nx + r] * PA[m * nx + c];
-      P[e] = acc;
-    }
-    __syncthreads();
-
-    // relative Levenberg damping of Quu_h, then symmetrize
-    if (tid == 0) {
-      T mx = Aug[0];
-      for (int r = 1; r < nu; ++r) mx = Aug[r * w + r] > mx ? Aug[r * w + r] : mx;
-      scale[0] = reg * (mx > T(1) ? mx : T(1));
-    }
-    __syncthreads();
-    for (int e = tid; e < nu * nu; e += nt) {
-      const int r = e / nu, c = e % nu;
-      if (r == c) {
-        Aug[r * w + r] += scale[0];
-      } else if (r < c) {
-        const T m = T(0.5) * (Aug[r * w + c] + Aug[c * w + r]);
-        Aug[r * w + c] = m;
-        Aug[c * w + r] = m;
+    // (1) PM = P'M + [0 | 0 | p]   (P symmetric: P'M = P [B | A | d])
+    {
+      const int n_cols = wp / 4, n_tiles = round_up(nx, 4) / 4 * n_cols;
+      for (int tt = tid; tt < n_tiles; tt += kThreads) {
+        const int r0 = tt / n_cols * 4, c0 = tt % n_cols * 4;
+        T acc[4][4] = {};
+        tile_xty<true>(Pb, ldp, Mc, wp, nx, r0, c0, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+          if (r >= nx) break;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            PM[r * wp + c0 + j] = acc[i][j] + (c0 + j == w - 1 ? Pb[r * ldp + nx] : T(0));
+          }
+        }
       }
     }
     __syncthreads();
 
-    // Gauss-Jordan on [Quu_h | Qux_h, Qu]: the right block becomes Quu_h^-1 [Qux_h, Qu]
-    for (int j = 0; j < nu; ++j) {
-      const T piv = Aug[j * w + j];
-      for (int c = tid; c < w; c += nt) prow[c] = Aug[j * w + c] / piv;
-      for (int r = tid; r < nu; r += nt) fac[r] = Aug[r * w + j];
-      __syncthreads();
-      for (int e = tid; e < nu * w; e += nt) {
-        const int r = e / w, c = e % w;
-        Aug[e] = (r == j) ? prow[c] : Aug[e] - fac[r] * prow[c];
+    // (2) W = M'PM + stage cost, upper tiles only: rows < nu into Ch, the rest
+    //     ([Qxx_h | Qx]) into Pb, whose P was last read in (1)
+    {
+      const T* Qxxs = Qxx + s * nxx;
+      const T* Quus = Quu + s * nuu;
+      const T* Quxs = Qux + s * nxu;
+      const T* qxs = qx + static_cast<size_t>(s) * nx;
+      const T* qus = qu + static_cast<size_t>(s) * nu;
+      const int n_rows = round_up(nu + nx, 4) / 4, n_cols = wp / 4;
+      const int n_tiles = upper_tile_count(n_rows, n_cols);
+      for (int tt = tid; tt < n_tiles; tt += kThreads) {
+        int R, C;
+        upper_tile(tt, n_cols, R, C);
+        const int r0 = 4 * R, c0 = 4 * C;
+        // the cost entries' loads go out before the product and land during it
+        T q1[4][4], q2[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int v1 = r0 + i, v2 = c0 + j;
+            const T* p1 = qus;
+            const T* p2 = qus;
+            if (v1 < nu + nx && v2 < w && v2 >= v1) {
+              stage_cost_at(v1, v2, Qxxs, Quus, Quxs, qxs, qus, nx, nu, p1, p2);
+            }
+            q1[i][j] = *p1;
+            q2[i][j] = *p2;
+          }
+        }
+        T acc[4][4] = {};
+        tile_xty<true>(Mc, wp, PM, wp, nx, r0, c0, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int v1 = r0 + i, v2 = c0 + j;
+            if (v1 >= nu + nx || v2 >= w || v2 < v1) continue;
+            const T val = acc[i][j] + T(0.5) * (q1[i][j] + q2[i][j]);
+            if (v1 < nu) {
+              Ch[v1 * wp + v2] = val;
+            } else {
+              Pb[(v1 - nu) * ldp + (v2 - nu)] = val;
+            }
+          }
+        }
       }
-      __syncthreads();
     }
+    __syncthreads();
 
-    // K = -sol[:, :nx], k = -sol[:, nx]
-    T* Ks = K + s * nxu;
-    for (int e = tid; e < nu * nx; e += nt) Ks[e] = -Aug[(e / nx) * w + nu + (e % nx)];
-    for (int r = tid; r < nu; r += nt) k[static_cast<size_t>(s) * nu + r] = -Aug[r * w + nu + nx];
-    // P = Qxx_h + Qux_h' K,  p = Qx + Qux_h' k
-    for (int e = tid; e < nx * nx; e += nt) {
-      const int r = e / nx, c = e % nx;
-      T acc = P[e];
-      for (int m = 0; m < nu; ++m) acc -= Quxh[m * nx + r] * Aug[m * w + nu + c];
-      P[e] = acc;
-    }
-    for (int r = tid; r < nx; r += nt) {
-      T acc = Qx[r];
-      for (int m = 0; m < nu; ++m) acc -= Quxh[m * nx + r] * Aug[m * w + nu + nx];
-      p[r] = acc;
+    // (3) Three roles side by side.
+    if (warp < e_warps) {
+      // Damping, then the upper Cholesky of [Quu_h | Qux_h | Qu] over its nu
+      // rows, left-looking: row i of [U | Y | y] is W's row i less its dot
+      // products with the rows above, over the square root of the damped
+      // pivot. A thread per column, one named barrier per pivot; every thread
+      // forms the pivot itself and the diagonal of Ch is never overwritten
+      // (1/U_ii goes to invd), so no entry is read and written between two
+      // barriers.
+      T mx = Ch[0];
+      for (int i = lane; i < nu; i += kWarp) mx = Ch[i * wp + i] > mx ? Ch[i * wp + i] : mx;
+      mx = warp_max(mx);
+      const T damp = reg * (mx > T(1) ? mx : T(1));
+      for (int i = 0; i < nu; ++i) {
+        named_sync(n_elim);   // the rows above i are final
+        for (int c = tid; c < w; c += n_elim) {
+          if (c < i) continue;
+          T sp0 = T(0), sp1 = T(0), sc0 = T(0), sc1 = T(0);   // column i with itself, with c
+          int l = 0;
+#pragma unroll 4
+          for (; l + 1 < i; l += 2) {
+            const T u0 = Ch[l * wp + i], u1 = Ch[(l + 1) * wp + i];
+            sp0 += u0 * u0;
+            sp1 += u1 * u1;
+            sc0 += u0 * Ch[l * wp + c];
+            sc1 += u1 * Ch[(l + 1) * wp + c];
+          }
+          if (l < i) {
+            const T u0 = Ch[l * wp + i];
+            sp0 += u0 * u0;
+            sc0 += u0 * Ch[l * wp + c];
+          }
+          const T rsq = rsqrt_t(Ch[i * wp + i] + damp - (sp0 + sp1));
+          if (c == i) {
+            invd[i] = rsq;
+          } else {
+            Ch[i * wp + c] = (Ch[i * wp + c] - (sc0 + sc1)) * rsq;
+          }
+        }
+      }
+    } else if (warp < e_warps + b_warps) {
+      // K, k of the stage before (s + 1), from its Cholesky buffer
+      if (t > 0) {
+        back_substitute((t & 1) ? C0 : C1, (t & 1) ? D0 : D1, PM, K + (s + 1) * nxu,
+                        k + static_cast<size_t>(s + 1) * nu, nx, nu, wp, ldp,
+                        tid - n_elim, b_warps * kWarp);
+      }
+    } else if (s > 0) {
+      load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
+                 d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, e_warps + b_warps, c_warps);
     }
     __syncthreads();
-    for (int e = tid; e < nx * nx; e += nt) {
-      const int r = e / nx, c = e % nx;
-      if (r < c) {
-        const T m = T(0.5) * (P[r * nx + c] + P[c * nx + r]);
-        P[r * nx + c] = m;
-        P[c * nx + r] = m;
+
+    // (4) [P | p] <- [Qxx_h | Qx] - Y'[Y | y], upper tiles, mirrored into the
+    //     lower triangle of P
+    {
+      const int n_rows = round_up(nx, 4) / 4, n_cols = round_up(nx + 1, 4) / 4;
+      const int n_tiles = upper_tile_count(n_rows, n_cols);
+      for (int tt = tid; tt < n_tiles; tt += kThreads) {
+        int R, C;
+        upper_tile(tt, n_cols, R, C);
+        const int r0 = 4 * R, c0 = 4 * C;
+        T acc[4][4] = {};
+        tile_xty<false>(Ch + nu, wp, Ch + nu, wp, nu, r0, c0, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = r0 + i, c = c0 + j;
+            if (r >= nx || c > nx || c < r) continue;
+            const T val = Pb[r * ldp + c] - acc[i][j];
+            Pb[r * ldp + c] = val;
+            if (c < nx && c != r) Pb[c * ldp + r] = val;
+          }
+        }
       }
     }
-    __syncthreads();
   }
+  // K, k of stage 0
+  if (tid < b_warps * kWarp) {
+    back_substitute(((N - 1) & 1) ? C1 : C0, ((N - 1) & 1) ? D1 : D0, PM, K, k, nx, nu, wp, ldp,
+                    tid, b_warps * kWarp);
+  }
+  __syncthreads();   // every K, k written
 
   // ---- forward rollout of the closed loop ----
-  T* dx = Pdp;
-  T* du = fac;
-  for (int r = tid; r < nx; r += nt) dx[r] = dx0[r];
+  // z = [du | dx | 1], so that du = [K | k] z[nu:] and dx_next = M z. Each warp
+  // keeps its rows of stage s's M and [K | k] in registers and reloads them
+  // for stage s + 1 as soon as they are used.
+  T* z = D0 + 2 * round_up(nu, 4);
+  T* zn = z + wp;
+  for (int r = tid; r < nx; r += kThreads) {
+    z[nu + r] = dx0[r];
+    dxs[r] = dx0[r];
+  }
+  if (tid == 0) {
+    z[nu + nx] = T(1);
+    zn[nu + nx] = T(1);
+  }
+  T mreg[kRowsM][kColsM], kreg[kRowsK][kColsK];
+#pragma unroll
+  for (int j = 0; j < kRowsM; ++j) {
+#pragma unroll
+    for (int q = 0; q < kColsM; ++q) {
+      const int r = warp + kWarps * j, c = lane + kWarp * q;
+      mreg[j][q] = (r < nx && c < w) ? stage_m(A, Bm, d, 0, r, c, nx, nu) : T(0);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsK; ++j) {
+#pragma unroll
+    for (int q = 0; q < kColsK; ++q) {
+      const int i = warp + kWarps * j, c = lane + kWarp * q;
+      kreg[j][q] = (i < nu && c <= nx) ? stage_k(K, k, 0, i, c, nx, nu) : T(0);
+    }
+  }
   __syncthreads();
   for (int s = 0; s < N; ++s) {
-    const T* Ks = K + s * nxu;
-    for (int r = tid; r < nu; r += nt) {
-      T acc = k[static_cast<size_t>(s) * nu + r];
-      for (int c = 0; c < nx; ++c) acc += Ks[r * nx + c] * dx[c];
-      du[r] = acc;
-      dus[static_cast<size_t>(s) * nu + r] = acc;
+    const bool more = s + 1 < N;
+    // du = [K | k] [dx; 1]: one warp per row
+#pragma unroll
+    for (int j = 0; j < kRowsK; ++j) {
+      const int i = warp + kWarps * j;
+      if (i >= nu) break;
+      T acc = T(0);
+#pragma unroll
+      for (int q = 0; q < kColsK; ++q) {
+        const int c = lane + kWarp * q;
+        if (c <= nx) acc += kreg[j][q] * z[nu + c];
+        kreg[j][q] = (more && c <= nx) ? stage_k(K, k, s + 1, i, c, nx, nu) : T(0);
+      }
+      for (int c = lane + kWarp * kColsK; c <= nx; c += kWarp) {
+        acc += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        z[i] = acc;
+        dus[static_cast<size_t>(s) * nu + i] = acc;
+      }
     }
-    for (int r = tid; r < nx; r += nt) dxs[static_cast<size_t>(s) * nx + r] = dx[r];
-    __syncthreads();
-    const T* As = A + s * nxx;
-    const T* Bs = Bm + s * nxu;
-    for (int r = tid; r < nx; r += nt) {
-      T acc = d[static_cast<size_t>(s) * nx + r];
-      for (int c = 0; c < nx; ++c) acc += As[r * nx + c] * dx[c];
-      for (int m = 0; m < nu; ++m) acc += Bs[r * nu + m] * du[m];
-      dxn[r] = acc;
+    for (int i = warp + kWarps * kRowsK; i < nu; i += kWarps) {
+      T acc = T(0);
+      for (int c = lane; c <= nx; c += kWarp) acc += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        z[i] = acc;
+        dus[static_cast<size_t>(s) * nu + i] = acc;
+      }
     }
     __syncthreads();
-    for (int r = tid; r < nx; r += nt) dx[r] = dxn[r];
+    // dx_next = [B | A | d] [du; dx; 1]: one warp per row
+#pragma unroll
+    for (int j = 0; j < kRowsM; ++j) {
+      const int r = warp + kWarps * j;
+      if (r >= nx) break;
+      T acc = T(0);
+#pragma unroll
+      for (int q = 0; q < kColsM; ++q) {
+        const int c = lane + kWarp * q;
+        if (c < w) acc += mreg[j][q] * z[c];
+        mreg[j][q] = (more && c < w) ? stage_m(A, Bm, d, s + 1, r, c, nx, nu) : T(0);
+      }
+      for (int c = lane + kWarp * kColsM; c < w; c += kWarp) {
+        acc += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        zn[nu + r] = acc;
+        dxs[static_cast<size_t>(s + 1) * nx + r] = acc;
+      }
+    }
+    for (int r = warp + kWarps * kRowsM; r < nx; r += kWarps) {
+      T acc = T(0);
+      for (int c = lane; c < w; c += kWarp) acc += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        zn[nu + r] = acc;
+        dxs[static_cast<size_t>(s + 1) * nx + r] = acc;
+      }
+    }
     __syncthreads();
+    T* tmp = z;
+    z = zn;
+    zn = tmp;
   }
-  for (int r = tid; r < nx; r += nt) dxs[static_cast<size_t>(N) * nx + r] = dx[r];
 }
 
 template <typename T>
@@ -258,7 +603,7 @@ int launch_riccati(const T* A, const T* B, const T* d, const T* Qxx, const T* Qu
                    const T* qx, const T* qu, const T* QN, const T* qN, const T* dx0, T* K, T* k,
                    T* dxs, T* dus, int batch, int N, int nx, int nu, double reg, void* stream) {
   if (batch <= 0 || N <= 0 || nx <= 0 || nu <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_elems(nx, nu) * sizeof(T);
+  const size_t smem = make_layout(nx, nu).total * sizeof(T);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -274,7 +619,7 @@ int launch_riccati(const T* A, const T* B, const T* d, const T* Qxx, const T* Qu
 }  // namespace
 
 extern "C" size_t wbmpc_riccati_smem_bytes(int nx, int nu, int elem_size) {
-  return smem_elems(nx, nu) * static_cast<size_t>(elem_size);
+  return make_layout(nx, nu).total * static_cast<size_t>(elem_size);
 }
 
 extern "C" int wbmpc_riccati_rollout_f32(const float* A, const float* B, const float* d,
