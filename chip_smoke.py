@@ -35,10 +35,12 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks: 67 TFLOP/s float32 outside the tensor cores,
-# 3.35 TB/s device memory (NVIDIA data sheet).
+# Published H100 SXM peaks: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
+# the tensor cores, 3.35 TB/s device memory, 132 SMs (NVIDIA data sheet).
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
+N_SMS = 132
 N_NODES = 28
 K2_TOL = dict(rtol=1e-4, atol=5e-6)   # the Mosaic tolerance of tests/test_ops_fkvel.py
 K1_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_ops_riccati.py Mosaic tier
@@ -243,12 +245,12 @@ def main() -> int:
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # ---- 4. K1: fused Riccati + rollout ----
-    def lq_tensors(seed, N, nx, nu, quu_span=1.0, batch=None):
+    def lq_tensors(seed, N, nx, nu, quu_span=1.0, batch=None, dtype=np.float32):
         r = np.random.default_rng(seed)
         if batch is None:
-            data = riccati.random_lq_data(r, N, nx, nu, quu_span=quu_span)
+            data = riccati.random_lq_data(r, N, nx, nu, dtype=dtype, quu_span=quu_span)
         else:
-            parts = [riccati.random_lq_data(r, N, nx, nu, quu_span=quu_span)
+            parts = [riccati.random_lq_data(r, N, nx, nu, dtype=dtype, quu_span=quu_span)
                      for _ in range(batch)]
             data = {k: np.stack([p[k] for p in parts]) for k in parts[0]}
         return [torch.as_tensor(data[k], device=dev) for k in
@@ -256,9 +258,13 @@ def main() -> int:
 
     k1_err = 0.0
     k1_case = {}
-    for label, args in (("(28,58,21)", lq_tensors(7, 28, 58, 21)),
-                        ("(28,58,21) quu_span=100", lq_tensors(8, 28, 58, 21, quu_span=100.0)),
-                        ("(28,58,21) batch=4", lq_tensors(9, 28, 58, 21, batch=4))):
+    for label, shape, args in (
+            ("(28,58,21)", (28, 58, 21, 4), lq_tensors(7, 28, 58, 21)),
+            ("(28,58,21) quu_span=100", (28, 58, 21, 4), lq_tensors(8, 28, 58, 21,
+                                                                    quu_span=100.0)),
+            ("(28,58,21) batch=4", (28, 58, 21, 4), lq_tensors(9, 28, 58, 21, batch=4)),
+            ("(28,58,35)", (28, 58, 35, 4), lq_tensors(16, 28, 58, 35)),
+            ("(28,58,21) f64", (28, 58, 21, 8), lq_tensors(17, 28, 58, 21, dtype=np.float64))):
         out_k = riccati.riccati_rollout_cuda(*args, reg=1e-8)
         out_p = riccati.riccati_rollout_plain(*args, reg=1e-8)
         torch.cuda.synchronize()
@@ -269,9 +275,15 @@ def main() -> int:
         k1_case[label] = (t_dev, t_p)
         if label == "(28,58,21)":
             k1_err = err
+        N_, nx_, nu_, size = shape
+        nbytes, ops = riccati_work(1, N_, nx_, nu_, size)
+        peak = PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS
+        card_ms = max(nbytes / PEAK_BYTES, ops / peak) * 1e3
+        sm_ms = ops / (peak / N_SMS) * 1e3
         print(f"K1 riccati {label}: max|kernel-plain| {err:.3e}; kernel {t_dev * 1e3:.1f} us on "
               f"the device, {t_k * 1e3:.1f} us per call with its wrapper; plain "
-              f"{t_p * 1e3:.1f} us per call")
+              f"{t_p * 1e3:.1f} us per call; card-wide bound {card_ms * 1e3:.3f} us, one-SM "
+              f"floor {sm_ms * 1e3:.1f} us ({ops / 1e6:.1f} MFLOP per instance)")
     nbytes, ops = riccati_work(1, 28, 58, 21, 4)
     b_ms, b_by = bound_ms(nbytes, ops)
     t_k, t_p = k1_case["(28,58,21)"]

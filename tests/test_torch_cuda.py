@@ -1,9 +1,12 @@
 """PyTorch port, card tier: each CUDA kernel against its plain PyTorch version
 on the card, in float32 and float64, at the main path's shapes and at the
 edges of the kernels' launch geometry (a second block and a ragged tail for
-K2; the shared-memory opt-in above 48 KB and the refusal above 227 KB for
-K1, and K1 on the AL path's unprojected LQ from real solver data; for K3
-more rows than warps and a batch). Needs an NVIDIA card and `nvcc`; skipped
+K2; for K1 the shared-memory opt-in above 48 KB, the largest case that fits
+((28, 58, 35) in f64) and the refusal above 227 KB, N = 1 and 2 where the
+stage prefetch has nothing or one stage to fetch, widths that are not a
+multiple of the 4 x 4 tiles, nu = 1, a batch at the AL shape, and K1 on the
+AL path's unprojected LQ from real solver data; for K3 more rows than warps
+and a batch). Needs an NVIDIA card and `nvcc`; skipped
 elsewhere. This file imports no JAX, so it also runs where JAX is not
 installed:
 
@@ -73,10 +76,14 @@ def _lq(seed, N, nx, nu, dtype, card, batch=None, quu_span=1.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("shape", [(28, 58, 21), (28, 58, 35), (7, 12, 5), (6, 36, 10)],
+@pytest.mark.parametrize("shape", [(28, 58, 21), (28, 58, 35), (7, 12, 5), (6, 36, 10),
+                                   (1, 58, 21), (2, 58, 35), (5, 13, 7), (4, 58, 1)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_riccati_kernel_matches_plain(card, shape, dtype):
-    """(28, 58, 35) in f32 and (28, 58, 21) in f64 need the opt-in above 48 KB."""
+    """Every (28, 58, *) case needs the opt-in above 48 KB; (28, 58, 35) in
+    f64 is the largest that fits (217 KB). N = 1 has no stage to prefetch and
+    N = 2 one; (5, 13, 7) and (4, 58, 1) leave ragged 4 x 4 tiles (nu = 1: a
+    single pivot)."""
     args = _lq(sum(shape), *shape, dtype, card)
     before = riccati.LAUNCHES
     got = riccati.riccati_rollout_cuda(*args, reg=1e-8)
@@ -90,6 +97,15 @@ def test_riccati_kernel_batch(card, dtype):
     got = riccati.riccati_rollout_cuda(*args, reg=1e-8)
     assert got[0].shape == (3, 28, 21, 58) and got[2].shape == (3, 29, 58)
     _close(got, riccati.riccati_rollout_plain(*args, reg=1e-8), TOL[dtype], "K1 batch")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_riccati_kernel_batch_al_shape(card, dtype):
+    """Four instances at the AL path's (28, 58, 35): four blocks."""
+    args = _lq(5, 28, 58, 35, dtype, card, batch=4)
+    got = riccati.riccati_rollout_cuda(*args, reg=1e-8)
+    assert got[0].shape == (4, 28, 35, 58) and got[3].shape == (4, 28, 35)
+    _close(got, riccati.riccati_rollout_plain(*args, reg=1e-8), TOL[dtype], "K1 batch AL shape")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
