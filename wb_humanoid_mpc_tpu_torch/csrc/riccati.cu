@@ -121,8 +121,10 @@ __device__ inline void cp_async(T* dst, const T* src) {
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// wait until at most n of this thread's cp.async groups are pending
+template <int n>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // a barrier among the first n threads of the block (n a multiple of 32)
@@ -130,10 +132,13 @@ __device__ inline void named_sync(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
-template <typename T>
-__device__ inline T warp_sum(T v) {
-  for (int off = kWarp / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// the warp sums of n values at once, their shuffles interleaved
+template <int n, typename T>
+__device__ inline void warp_sums(T (&v)[n]) {
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+#pragma unroll
+    for (int j = 0; j < n; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  }
 }
 
 template <typename T>
@@ -183,7 +188,7 @@ __device__ inline int upper_tile_count(int n_rows, int n_cols) {
 }
 
 // copy stage s's M = [B | A | d] into dst (nx x wp) with cp.async, a warp per
-// row, by the n_warps warps from first_warp on (the caller's among them); one group
+// row, by the n_warps warps from first_warp on (the caller's among them)
 template <typename T>
 __device__ inline void load_stage(T* dst, const T* A, const T* B, const T* d, int nx, int nu,
                                   int wp, int first_warp, int n_warps) {
@@ -194,7 +199,6 @@ __device__ inline void load_stage(T* dst, const T* A, const T* B, const T* d, in
     for (int c = lane; c < nx; c += kWarp) cp_async(row + nu + c, A + m * nx + c);
     if (lane == 0) cp_async(row + nu + nx, d + m);
   }
-  cp_async_commit();
 }
 
 // the two addresses whose mean is entry (v1, v2), v1 <= v2, of the stage cost
@@ -222,37 +226,145 @@ __device__ inline void stage_cost_at(int v1, int v2, const T* Qxx, const T* Quu,
 __device__ inline float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ inline double rsqrt_t(double x) { return rsqrt(x); }
 
+// pivots per step of the blocked Cholesky and back substitution
+constexpr int kPiv = 4;
+
+// The upper Cholesky factor of the nu rows [Quu_h | Qux_h | Qu] in Ch (upper
+// triangle), damped by damp on the diagonal: Ch's rows become [U | Y | y]
+// with 1/U_ii in invd, and U's diagonal is not stored. Left-looking and
+// blocked by kPiv rows: a thread per column c (every column < w has one),
+// one named barrier among the n_sync threads per block. Each thread factors
+// the kPiv x kPiv diagonal block itself, from the rows above it, and solves
+// its column's kPiv entries. The owner of a diagonal-block column writes its
+// entries one block late, after the others have read them.
+template <typename T>
+__device__ inline void cholesky_rows(T* Ch, T* invd, int wp, int nu, int w, T damp, int c,
+                                     int n_sync) {
+  T pend[kPiv];
+  int pend_j0 = 0, pend_n = 0;
+  for (int j0 = 0; j0 < nu; j0 += kPiv) {
+    named_sync(n_sync);   // the rows above j0 are final
+#pragma unroll
+    for (int a = 0; a < kPiv; ++a) {
+      if (a < pend_n) Ch[(pend_j0 + a) * wp + c] = pend[a];
+    }
+    pend_n = 0;
+    if (c < j0 || c >= w) continue;
+    const int bs = nu - j0 < kPiv ? nu - j0 : kPiv;
+    T G[kPiv][kPiv], S[kPiv];   // the block's rows and column c, less the rows above
+#pragma unroll
+    for (int a = 0; a < kPiv; ++a) {
+      S[a] = T(0);
+#pragma unroll
+      for (int b = 0; b < kPiv; ++b) G[a][b] = T(0);
+    }
+#pragma unroll 2
+    for (int l = 0; l < j0; ++l) {
+      T u[kPiv];
+      ld4(Ch + l * wp + j0, u);   // row l, the block's columns (16-byte aligned)
+      const T v = Ch[l * wp + c];
+#pragma unroll
+      for (int a = 0; a < kPiv; ++a) {
+        S[a] -= u[a] * v;
+#pragma unroll
+        for (int b = a; b < kPiv; ++b) G[a][b] -= u[a] * u[b];
+      }
+    }
+    T R[kPiv][kPiv], inv[kPiv];   // the block's factor, above its diagonal; 1 / diagonal
+#pragma unroll
+    for (int a = 0; a < kPiv; ++a) {
+      if (a >= bs) break;
+      T dd = G[a][a] + Ch[(j0 + a) * wp + j0 + a] + damp;
+#pragma unroll
+      for (int k = 0; k < a; ++k) dd -= R[k][a] * R[k][a];
+      inv[a] = rsqrt_t(dd);
+#pragma unroll
+      for (int b = a + 1; b < kPiv; ++b) {
+        if (b >= bs) break;
+        T x = G[a][b] + Ch[(j0 + a) * wp + j0 + b];
+#pragma unroll
+        for (int k = 0; k < a; ++k) x -= R[k][a] * R[k][b];
+        R[a][b] = x * inv[a];
+      }
+    }
+    const int cb = c - j0;
+    if (cb < bs) {   // a column of the diagonal block
+#pragma unroll
+      for (int b = 0; b < kPiv; ++b) {
+        if (b != cb) continue;
+        invd[c] = inv[b];
+#pragma unroll
+        for (int a = 0; a < b; ++a) pend[a] = R[a][b];
+      }
+      pend_j0 = j0;
+      pend_n = cb;
+    } else {
+      T x[kPiv];
+#pragma unroll
+      for (int a = 0; a < kPiv; ++a) {
+        if (a >= bs) break;
+        T y = S[a] + Ch[(j0 + a) * wp + c];
+#pragma unroll
+        for (int k = 0; k < a; ++k) y -= R[k][a] * x[k];
+        x[a] = y * inv[a];
+        Ch[(j0 + a) * wp + c] = x[a];
+      }
+    }
+  }
+  named_sync(n_sync);   // the last block's diagonal entries were read
+#pragma unroll
+  for (int a = 0; a < kPiv; ++a) {
+    if (a < pend_n) Ch[(pend_j0 + a) * wp + c] = pend[a];
+  }
+}
+
 // K = -U^-1 Y, k = -U^-1 y for one stage, from its Cholesky rows Ch = [U | Y | y]
-// and invd = 1/U_ii: left-looking back substitution, a thread per column of
-// [Y | y] (thread t of n_threads), each solution column kept in X (nu x ldp)
+// and invd = 1/U_ii: back substitution by blocks of kPiv rows from the bottom,
+// a thread per column of [Y | y] (thread t of n_threads), each solution
+// column kept in X (nu x ldp)
 template <typename T>
 __device__ inline void back_substitute(const T* Ch, const T* invd, T* X, T* Ks, T* ks, int nx,
                                        int nu, int wp, int ldp, int t, int n_threads) {
   for (int c = t; c <= nx; c += n_threads) {
-    for (int i = nu - 1; i >= 0; --i) {
-      T a0 = Ch[i * wp + nu + c], a1 = T(0);
-      int l = i + 1;
-#pragma unroll 4
-      for (; l + 1 < nu; l += 2) {
-        a0 -= Ch[i * wp + l] * X[l * ldp + c];
-        a1 -= Ch[i * wp + l + 1] * X[(l + 1) * ldp + c];
+    for (int j1 = nu; j1 > 0; j1 -= kPiv) {
+      const int j0 = j1 > kPiv ? j1 - kPiv : 0;
+      const int bs = j1 - j0;
+      T S[kPiv];
+#pragma unroll
+      for (int a = 0; a < kPiv; ++a) S[a] = a < bs ? Ch[(j0 + a) * wp + nu + c] : T(0);
+#pragma unroll 2
+      for (int l = j1; l < nu; ++l) {
+        const T xl = X[l * ldp + c];
+#pragma unroll
+        for (int a = 0; a < kPiv; ++a) {
+          if (a < bs) S[a] -= Ch[(j0 + a) * wp + l] * xl;
+        }
       }
-      if (l < nu) a0 -= Ch[i * wp + l] * X[l * ldp + c];
-      const T x = (a0 + a1) * invd[i];
-      X[i * ldp + c] = x;
-      if (c < nx) {
-        Ks[i * nx + c] = -x;
-      } else {
-        ks[i] = -x;
+      T x[kPiv];
+#pragma unroll
+      for (int a = kPiv - 1; a >= 0; --a) {
+        if (a >= bs) continue;
+        T y = S[a];
+#pragma unroll
+        for (int b = a + 1; b < kPiv; ++b) {
+          if (b < bs) y -= Ch[(j0 + a) * wp + j0 + b] * x[b];
+        }
+        x[a] = y * invd[j0 + a];
+        X[(j0 + a) * ldp + c] = x[a];
+        if (c < nx) {
+          Ks[(j0 + a) * nx + c] = -x[a];
+        } else {
+          ks[j0 + a] = -x[a];
+        }
       }
     }
   }
 }
 
-// rows of M and of [K | k] that one warp keeps in registers in the rollout
-// (4 x 3 and 3 x 2 values a lane: nx <= 64, w <= 96, nu <= 48); anything
-// beyond is read from global memory where it is used
-constexpr int kRowsM = 4, kColsM = 3, kRowsK = 3, kColsK = 2;
+// rows of [K | k] and of M that one warp holds in registers in the rollout
+// (3 x 2 and 4 x 3 values a lane: nu <= 48, nx <= 63, w <= 96); rows and
+// columns beyond are read from global memory where they are used
+constexpr int kRowsK = 3, kColsK = 2, kRowsM = 4, kColsM = 3;
 
 template <typename T>
 __device__ inline T stage_m(const T* A, const T* B, const T* d, int s, int r, int c, int nx,
@@ -314,7 +426,7 @@ __global__ void __launch_bounds__(kThreads)
   // Roles in the elimination phase: warps [0, e_warps) eliminate, a thread per
   // column of [Quu_h | Qux_h | Qu]; the next b_warps back-substitute the stage
   // before; the rest (c_warps, maybe none) copy in the next stage's M.
-  const int e_warps = round_up(w, kWarp) / kWarp < kWarps ? round_up(w, kWarp) / kWarp : kWarps;
+  const int e_warps = round_up(w, kWarp) / kWarp;   // at most kWarps - 1 (see launch_riccati)
   const int n_elim = e_warps * kWarp;
   int b_warps = round_up(nx + 1, kWarp) / kWarp;
   if (b_warps > kWarps - e_warps) b_warps = kWarps - e_warps;
@@ -322,6 +434,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_stage(M0, A + (N - 1) * nxx, Bm + (N - 1) * nxu, d + static_cast<size_t>(N - 1) * nx,
              nx, nu, wp, 0, kWarps);
+  cp_async_commit();
   for (int e = tid; e < nx * nx; e += kThreads) {
     const int r = e / nx, c = e - r * nx;
     Pb[r * ldp + c] = T(0.5) * (QN[r * nx + c] + QN[c * nx + r]);
@@ -334,11 +447,12 @@ __global__ void __launch_bounds__(kThreads)
     const T* Mc = (t & 1) ? M1 : M0;
     T* Ch = (t & 1) ? C1 : C0;       // this stage's Cholesky rows
     T* invd = (t & 1) ? D1 : D0;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();   // this stage's M has landed; the last stage's P update is done
     if (s > 0 && c_warps == 0) {
       load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
                  d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, 0, kWarps);
+      cp_async_commit();
     }
 
     // (1) PM = P'M + [0 | 0 | p]   (P symmetric: P'M = P [B | A | d])
@@ -375,8 +489,8 @@ __global__ void __launch_bounds__(kThreads)
         int R, C;
         upper_tile(tt, n_cols, R, C);
         const int r0 = 4 * R, c0 = 4 * C;
-        // the cost entries' loads go out before the product and land during it
-        T q1[4][4], q2[4][4];
+        // the product starts from the stage cost: its 32 loads go out together
+        T q1[4][4], q2[4][4], acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -391,7 +505,11 @@ __global__ void __launch_bounds__(kThreads)
             q2[i][j] = *p2;
           }
         }
-        T acc[4][4] = {};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = T(0.5) * (q1[i][j] + q2[i][j]);
+        }
         tile_xty<true>(Mc, wp, PM, wp, nx, r0, c0, acc);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -399,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 0; j < 4; ++j) {
             const int v1 = r0 + i, v2 = c0 + j;
             if (v1 >= nu + nx || v2 >= w || v2 < v1) continue;
-            const T val = acc[i][j] + T(0.5) * (q1[i][j] + q2[i][j]);
+            const T val = acc[i][j];
             if (v1 < nu) {
               Ch[v1 * wp + v2] = val;
             } else {
@@ -413,44 +531,12 @@ __global__ void __launch_bounds__(kThreads)
 
     // (3) Three roles side by side.
     if (warp < e_warps) {
-      // Damping, then the upper Cholesky of [Quu_h | Qux_h | Qu] over its nu
-      // rows, left-looking: row i of [U | Y | y] is W's row i less its dot
-      // products with the rows above, over the square root of the damped
-      // pivot. A thread per column, one named barrier per pivot; every thread
-      // forms the pivot itself and the diagonal of Ch is never overwritten
-      // (1/U_ii goes to invd), so no entry is read and written between two
-      // barriers.
+      // Damping (every eliminating warp takes the max itself), then the
+      // Cholesky of [Quu_h | Qux_h | Qu]
       T mx = Ch[0];
       for (int i = lane; i < nu; i += kWarp) mx = Ch[i * wp + i] > mx ? Ch[i * wp + i] : mx;
       mx = warp_max(mx);
-      const T damp = reg * (mx > T(1) ? mx : T(1));
-      for (int i = 0; i < nu; ++i) {
-        named_sync(n_elim);   // the rows above i are final
-        for (int c = tid; c < w; c += n_elim) {
-          if (c < i) continue;
-          T sp0 = T(0), sp1 = T(0), sc0 = T(0), sc1 = T(0);   // column i with itself, with c
-          int l = 0;
-#pragma unroll 4
-          for (; l + 1 < i; l += 2) {
-            const T u0 = Ch[l * wp + i], u1 = Ch[(l + 1) * wp + i];
-            sp0 += u0 * u0;
-            sp1 += u1 * u1;
-            sc0 += u0 * Ch[l * wp + c];
-            sc1 += u1 * Ch[(l + 1) * wp + c];
-          }
-          if (l < i) {
-            const T u0 = Ch[l * wp + i];
-            sp0 += u0 * u0;
-            sc0 += u0 * Ch[l * wp + c];
-          }
-          const T rsq = rsqrt_t(Ch[i * wp + i] + damp - (sp0 + sp1));
-          if (c == i) {
-            invd[i] = rsq;
-          } else {
-            Ch[i * wp + c] = (Ch[i * wp + c] - (sc0 + sc1)) * rsq;
-          }
-        }
-      }
+      cholesky_rows(Ch, invd, wp, nu, w, reg * (mx > T(1) ? mx : T(1)), tid, n_elim);
     } else if (warp < e_warps + b_warps) {
       // K, k of the stage before (s + 1), from its Cholesky buffer
       if (t > 0) {
@@ -461,6 +547,7 @@ __global__ void __launch_bounds__(kThreads)
     } else if (s > 0) {
       load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
                  d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, e_warps + b_warps, c_warps);
+      cp_async_commit();
     }
     __syncthreads();
 
@@ -498,8 +585,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // ---- forward rollout of the closed loop ----
   // z = [du | dx | 1], so that du = [K | k] z[nu:] and dx_next = M z. Each warp
-  // keeps its rows of stage s's M and [K | k] in registers and reloads them
-  // for stage s + 1 as soon as they are used.
+  // loads its rows of stage s's [K | k] and M into registers at the top of
+  // the stage, all at once, and reduces its rows together.
   T* z = D0 + 2 * round_up(nu, 4);
   T* zn = z + wp;
   for (int r = tid; r < nx; r += kThreads) {
@@ -510,85 +597,120 @@ __global__ void __launch_bounds__(kThreads)
     z[nu + nx] = T(1);
     zn[nu + nx] = T(1);
   }
-  T mreg[kRowsM][kColsM], kreg[kRowsK][kColsK];
-#pragma unroll
-  for (int j = 0; j < kRowsM; ++j) {
-#pragma unroll
-    for (int q = 0; q < kColsM; ++q) {
-      const int r = warp + kWarps * j, c = lane + kWarp * q;
-      mreg[j][q] = (r < nx && c < w) ? stage_m(A, Bm, d, 0, r, c, nx, nu) : T(0);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kRowsK; ++j) {
-#pragma unroll
-    for (int q = 0; q < kColsK; ++q) {
-      const int i = warp + kWarps * j, c = lane + kWarp * q;
-      kreg[j][q] = (i < nu && c <= nx) ? stage_k(K, k, 0, i, c, nx, nu) : T(0);
-    }
-  }
   __syncthreads();
   for (int s = 0; s < N; ++s) {
-    const bool more = s + 1 < N;
-    // du = [K | k] [dx; 1]: one warp per row
+    T mreg[kRowsM][kColsM], kreg[kRowsK][kColsK];
 #pragma unroll
     for (int j = 0; j < kRowsK; ++j) {
-      const int i = warp + kWarps * j;
-      if (i >= nu) break;
-      T acc = T(0);
 #pragma unroll
       for (int q = 0; q < kColsK; ++q) {
-        const int c = lane + kWarp * q;
-        if (c <= nx) acc += kreg[j][q] * z[nu + c];
-        kreg[j][q] = (more && c <= nx) ? stage_k(K, k, s + 1, i, c, nx, nu) : T(0);
-      }
-      for (int c = lane + kWarp * kColsK; c <= nx; c += kWarp) {
-        acc += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        z[i] = acc;
-        dus[static_cast<size_t>(s) * nu + i] = acc;
+        const int i = warp + kWarps * j, c = lane + kWarp * q;
+        kreg[j][q] = (i < nu && c <= nx) ? stage_k(K, k, s, i, c, nx, nu) : T(0);
       }
     }
-    for (int i = warp + kWarps * kRowsK; i < nu; i += kWarps) {
-      T acc = T(0);
-      for (int c = lane; c <= nx; c += kWarp) acc += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        z[i] = acc;
-        dus[static_cast<size_t>(s) * nu + i] = acc;
+#pragma unroll
+    for (int j = 0; j < kRowsM; ++j) {
+#pragma unroll
+      for (int q = 0; q < kColsM; ++q) {
+        const int r = warp + kWarps * j, c = lane + kWarp * q;
+        mreg[j][q] = (r < nx && c < w) ? stage_m(A, Bm, d, s, r, c, nx, nu) : T(0);
+      }
+    }
+    // du = [K | k] [dx; 1]: one warp per row
+    {
+      T acc[kRowsK];
+#pragma unroll
+      for (int j = 0; j < kRowsK; ++j) {
+        const int i = warp + kWarps * j;
+        acc[j] = T(0);
+#pragma unroll
+        for (int q = 0; q < kColsK; ++q) {
+          const int c = lane + kWarp * q;
+          acc[j] += kreg[j][q] * z[nu + (c <= nx ? c : 0)];
+        }
+        if (i < nu) {
+          for (int c = lane + kWarp * kColsK; c <= nx; c += kWarp) {
+            acc[j] += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
+          }
+        }
+      }
+      warp_sums(acc);
+#pragma unroll
+      for (int j = 0; j < kRowsK; ++j) {
+        const int i = warp + kWarps * j;
+        if (lane == 0 && i < nu) {
+          z[i] = acc[j];
+          dus[static_cast<size_t>(s) * nu + i] = acc[j];
+        }
+      }
+    }
+    for (int i0 = warp + kWarps * kRowsK; i0 < nu; i0 += kWarps * kRowsK) {
+      T acc[kRowsK];
+#pragma unroll
+      for (int j = 0; j < kRowsK; ++j) {
+        const int i = i0 + kWarps * j;
+        acc[j] = T(0);
+        if (i < nu) {
+          for (int c = lane; c <= nx; c += kWarp) acc[j] += stage_k(K, k, s, i, c, nx, nu) * z[nu + c];
+        }
+      }
+      warp_sums(acc);
+#pragma unroll
+      for (int j = 0; j < kRowsK; ++j) {
+        const int i = i0 + kWarps * j;
+        if (lane == 0 && i < nu) {
+          z[i] = acc[j];
+          dus[static_cast<size_t>(s) * nu + i] = acc[j];
+        }
       }
     }
     __syncthreads();
     // dx_next = [B | A | d] [du; dx; 1]: one warp per row
+    {
+      T acc[kRowsM];
 #pragma unroll
-    for (int j = 0; j < kRowsM; ++j) {
-      const int r = warp + kWarps * j;
-      if (r >= nx) break;
-      T acc = T(0);
+      for (int j = 0; j < kRowsM; ++j) {
+        const int r = warp + kWarps * j;
+        acc[j] = T(0);
 #pragma unroll
-      for (int q = 0; q < kColsM; ++q) {
-        const int c = lane + kWarp * q;
-        if (c < w) acc += mreg[j][q] * z[c];
-        mreg[j][q] = (more && c < w) ? stage_m(A, Bm, d, s + 1, r, c, nx, nu) : T(0);
+        for (int q = 0; q < kColsM; ++q) {
+          const int c = lane + kWarp * q;
+          acc[j] += mreg[j][q] * z[c < w ? c : 0];
+        }
+        if (r < nx) {
+          for (int c = lane + kWarp * kColsM; c < w; c += kWarp) {
+            acc[j] += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
+          }
+        }
       }
-      for (int c = lane + kWarp * kColsM; c < w; c += kWarp) {
-        acc += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        zn[nu + r] = acc;
-        dxs[static_cast<size_t>(s + 1) * nx + r] = acc;
+      warp_sums(acc);
+#pragma unroll
+      for (int j = 0; j < kRowsM; ++j) {
+        const int r = warp + kWarps * j;
+        if (lane == 0 && r < nx) {
+          zn[nu + r] = acc[j];
+          dxs[static_cast<size_t>(s + 1) * nx + r] = acc[j];
+        }
       }
     }
-    for (int r = warp + kWarps * kRowsM; r < nx; r += kWarps) {
-      T acc = T(0);
-      for (int c = lane; c < w; c += kWarp) acc += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        zn[nu + r] = acc;
-        dxs[static_cast<size_t>(s + 1) * nx + r] = acc;
+    for (int r0 = warp + kWarps * kRowsM; r0 < nx; r0 += kWarps * kRowsM) {
+      T acc[kRowsM];
+#pragma unroll
+      for (int j = 0; j < kRowsM; ++j) {
+        const int r = r0 + kWarps * j;
+        acc[j] = T(0);
+        if (r < nx) {
+          for (int c = lane; c < w; c += kWarp) acc[j] += stage_m(A, Bm, d, s, r, c, nx, nu) * z[c];
+        }
+      }
+      warp_sums(acc);
+#pragma unroll
+      for (int j = 0; j < kRowsM; ++j) {
+        const int r = r0 + kWarps * j;
+        if (lane == 0 && r < nx) {
+          zn[nu + r] = acc[j];
+          dxs[static_cast<size_t>(s + 1) * nx + r] = acc[j];
+        }
       }
     }
     __syncthreads();
@@ -605,6 +727,11 @@ int launch_riccati(const T* A, const T* B, const T* d, const T* Qxx, const T* Qu
   if (batch <= 0 || N <= 0 || nx <= 0 || nu <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = make_layout(nx, nu).total * sizeof(T);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // a thread per column of [Quu_h | Qux_h | Qu] and a warp left over: every
+  // shape that fits in shared memory has w = nu + nx + 1 < 480
+  if (round_up(nu + nx + 1, kWarp) > kThreads - kWarp) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         riccati_rollout_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
