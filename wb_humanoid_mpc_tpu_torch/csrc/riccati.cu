@@ -63,6 +63,29 @@
 
 #include <cuda_runtime.h>
 
+#ifdef WBMPC_K1_PHASE_CLOCK
+// Phase clock, for tools/profile_k1.py only (built with -DWBMPC_K1_PHASE_CLOCK):
+// thread 0 of block 0 reads clock64() after each block barrier and adds the
+// cycles since its last reading to that phase's slot. 0: the P update of the
+// stage before and the wait for this stage's M; 1, 2, 3: phases (1), (2),
+// (3); 4: the last P update and stage 0's back substitution; 5: the rollout.
+__device__ unsigned long long k1_phase_cycles[6];
+#define K1_CLOCK_START long long k1_last_ = clock64()
+#define K1_MARK(k)                                                            \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                                  \
+    const long long now_ = clock64();                                         \
+    k1_phase_cycles[k] += static_cast<unsigned long long>(now_ - k1_last_);   \
+    k1_last_ = now_;                                                          \
+  }
+#define K1_END   \
+  __syncthreads(); \
+  K1_MARK(5)
+#else
+#define K1_CLOCK_START
+#define K1_MARK(k)
+#define K1_END
+#endif
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -423,6 +446,7 @@ __global__ void __launch_bounds__(kThreads)
   T* D0 = sm + L.vec;      // 1 / U_ii, one buffer per Cholesky buffer
   T* D1 = D0 + round_up(nu, 4);
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  K1_CLOCK_START;
   // Roles in the elimination phase: warps [0, e_warps) eliminate, a thread per
   // column of [Quu_h | Qux_h | Qu]; the next b_warps back-substitute the stage
   // before; the rest (c_warps, maybe none) copy in the next stage's M.
@@ -449,6 +473,7 @@ __global__ void __launch_bounds__(kThreads)
     T* invd = (t & 1) ? D1 : D0;
     cp_async_wait<0>();
     __syncthreads();   // this stage's M has landed; the last stage's P update is done
+    K1_MARK(0);
     if (s > 0 && c_warps == 0) {
       load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
                  d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, 0, kWarps);
@@ -474,6 +499,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    K1_MARK(1);
 
     // (2) W = M'PM + stage cost, upper tiles only: rows < nu into Ch, the rest
     //     ([Qxx_h | Qx]) into Pb, whose P was last read in (1)
@@ -528,6 +554,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
+    K1_MARK(2);
 
     // (3) Three roles side by side.
     if (warp < e_warps) {
@@ -550,6 +577,7 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_commit();
     }
     __syncthreads();
+    K1_MARK(3);
 
     // (4) [P | p] <- [Qxx_h | Qx] - Y'[Y | y], upper tiles, mirrored into the
     //     lower triangle of P
@@ -582,6 +610,7 @@ __global__ void __launch_bounds__(kThreads)
                     tid, b_warps * kWarp);
   }
   __syncthreads();   // every K, k written
+  K1_MARK(4);
 
   // ---- forward rollout of the closed loop ----
   // z = [du | dx | 1], so that du = [K | k] z[nu:] and dx_next = M z. Each warp
@@ -718,6 +747,7 @@ __global__ void __launch_bounds__(kThreads)
     z = zn;
     zn = tmp;
   }
+  K1_END;
 }
 
 template <typename T>
@@ -768,6 +798,18 @@ extern "C" int wbmpc_riccati_rollout_f64(const double* A, const double* B, const
   return launch_riccati<double>(A, B, d, Qxx, Quu, Qux, qx, qu, QN, qN, dx0, K, k, dxs, dus,
                                 batch, N, nx, nu, reg, stream);
 }
+
+#ifdef WBMPC_K1_PHASE_CLOCK
+// the phase clock's six slots, summed over the launches since the last reset
+extern "C" int wbmpc_riccati_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k1_phase_cycles, sizeof(k1_phase_cycles));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[6] = {};
+    err = cudaMemcpyToSymbol(k1_phase_cycles, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 extern "C" const char* wbmpc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
