@@ -281,7 +281,7 @@ __device__ inline void cholesky_rows(T* Ch, T* invd, int wp, int nu, int w, T da
 #pragma unroll
       for (int b = 0; b < kPiv; ++b) G[a][b] = T(0);
     }
-#pragma unroll 2
+#pragma unroll 4
     for (int l = 0; l < j0; ++l) {
       T u[kPiv];
       ld4(Ch + l * wp + j0, u);   // row l, the block's columns (16-byte aligned)
@@ -355,7 +355,7 @@ __device__ inline void back_substitute(const T* Ch, const T* invd, T* X, T* Ks, 
       T S[kPiv];
 #pragma unroll
       for (int a = 0; a < kPiv; ++a) S[a] = a < bs ? Ch[(j0 + a) * wp + nu + c] : T(0);
-#pragma unroll 2
+#pragma unroll 4
       for (int l = j1; l < nu; ++l) {
         const T xl = X[l * ldp + c];
 #pragma unroll
