@@ -116,7 +116,7 @@ EDITS = (
     ('asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" ::"r"(d), "l"(src),\n'
      '               "n"(static_cast<int>(sizeof(T))));', "(void)d; *dst = *src;"),
     ('asm volatile("cp.async.commit_group;\\n" ::);', ";"),
-    ('asm volatile("cp.async.wait_group %0;\\n" ::"n"(n) : "memory");', ";"),
+    ('asm volatile("cp.async.wait_group 0;\\n" ::: "memory");', ";"),
     ('asm volatile("bar.sync 1, %0;\\n" ::"r"(n) : "memory");', "emu_named_sync(n);"),
     ("extern __shared__ __align__(16) unsigned char smem_raw[];",
      "unsigned char* smem_raw = emu_smem;"),

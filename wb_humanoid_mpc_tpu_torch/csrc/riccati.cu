@@ -13,53 +13,61 @@
 //
 // What it computes, as `_riccati_kernel` does. Per stage, backwards, with
 // M = [B | A | d] (nx x w, w = nu + nx + 1) and the symmetric P:
-//   PM = P M + [0 | 0 | p]                                   (P B, P A, P d + p)
-//   W  = M' PM + [[Quu, Qux, qu], [Qux', Qxx, qx]]
-//      = [[Quu_h, Qux_h, Qu], [Qux_h', Qxx_h, Qx]]            (upper triangle only)
-// Quu_h is damped by reg * max(max diag, 1) on its diagonal (the rule of
-// ops/riccati.py:97-103) and taken symmetric: the stage costs enter as
-// (Q + Q')/2 and B'PB as its upper triangle. An upper Cholesky of the first nu
-// rows of W, [Quu_h | Qux_h | Qu] -> [U | Y | y] with U'U = Quu_h, gives
+//   PM = P M + [0 | 0 | p]                                  (P B, P A, P d + p)
+//   W  = M'PM + [[Quu, Qux, qu], [Qux', Qxx, qx]]
+//      = [[Quu_h, Qux_h, Qu], [Qux_h', Qxx_h, Qx]]           (upper triangle only)
+// The stage costs' square blocks enter as (Q + Q')/2, so Quu_h and Qxx_h are
+// taken symmetric; Quu_h is damped by reg * max(max diag, 1) on its diagonal
+// (the rule of ops/riccati.py:97-103). The upper Cholesky factor of W's first
+// nu rows, [Quu_h | Qux_h | Qu] -> [U | Y | y] with U'U = Quu_h, gives
 //   K = -U^-1 Y,  k = -U^-1 y   (back substitution),
 //   P <- Qxx_h - Y'Y = Qxx_h + Qux_h' K,   p <- Qx - Y'y = Qx + Qux_h' k,
-// the Schur complement, symmetric by construction (P written as its upper
-// triangle and mirrored). P_N is (QN + QN')/2. The forward rollout then
-// reads K and k back. Every sum is taken in the input type (f32 or f64);
-// there is no TF32 anywhere.
-//
-// Design (one block, 16 warps, everything of a stage in shared memory):
-// 1. Stage data one stage ahead. M of stage s-1 is copied into the second of
-//    two shared buffers with cp.async while stage s computes; Quu, Qux, Qxx,
-//    qu, qx are read once from global memory into registers ahead of the
-//    product they join.
-// 2. Register-tiled products. Each thread accumulates a 4 x 4 tile of
-//    X'Y from 16-byte shared-memory loads: PM = P'M (P symmetric), then only
-//    the upper tiles of W = M'PM, then only the upper tiles of Y'Y, mirrored
-//    on the write. The three passes over P, M, PM replace the old kernel's
-//    ten.
-// 3. The elimination has no block-wide barrier per pivot. The warps that own
-//    one column each of [Quu_h | Qux_h | Qu] (3 warps at w <= 96) run a
-//    right-looking Cholesky with one named barrier (`bar.sync 1, n`) among
-//    themselves per pivot; row j is scaled one pivot late, so that no row is
-//    read and written in the same step. Each of those warps takes the
-//    damping's max with shuffles. Then the back substitution for K, k (two
-//    warps, a thread per column) and the Y'Y update of P (the other 14 warps)
-//    run side by side.
-// 4. The rollout prefetches stage s+1's M and [K | k] with cp.async and
-//    reduces each row of K and of [B | A | d] in one warp, lane-strided over
-//    shared memory, with a shuffle sum.
-//
-// Shared memory (`make_layout`): [P | p] nx x ldp, the Cholesky rows nu x wp,
-// PM nx x wp, two M buffers, and three short vectors (ldp, wp: nx + 1 and w
-// rounded up to 4). 77 KB at (58, 21) in f32, 190 KB at (58, 35) in f64; a
-// shape beyond 227 KB is refused.
+// the Schur complement, symmetric by construction (its upper triangle is
+// computed and mirrored). P_N is (QN + QN')/2. The rollout then reads K and k
+// back. Every sum is taken in the input type (f32 or f64): no TF32 anywhere.
+// `_riccati_kernel`'s docstring allows either this Cholesky route or its
+// Gauss-Jordan elimination; the two agree to roundoff.
 //
 // Bound. At (N, nx, nu) = (28, 58, 21) in f32 the solve does 38.0 MFLOP and
 // moves 1.25 MB (`chip_smoke.riccati_work`): 0.567 us at 67 TFLOP/s, the
-// card-wide bound. The 28 stages depend on each other and run on one SM,
-// whose share of the peak (67 / 132 = 0.51 TFLOP/s) makes 75 us the one-SM
-// floor (105 us at nu = 35). The measured time and what still holds it back
-// are in PERF.md (K1 row, PR 4).
+// card-wide bound. The 28 stages depend on each other and this design runs
+// them on one SM, whose share of the peak (67 / 132 = 0.51 TFLOP/s) makes
+// 75 us the one-SM floor (105 us at nu = 35, 147 us in f64).
+//
+// Design (one block, 16 warps, a stage's working set in shared memory):
+// 1. Stage data one stage ahead: stage s-1's M is copied into the second of
+//    two shared buffers with cp.async while stage s computes. Quu, Qux, Qxx,
+//    qu and qx are read from global memory once, as the starting values of
+//    the product they join.
+// 2. Register-tiled products: each thread accumulates a 4 x 4 tile of X'Y
+//    from 16-byte shared loads: PM = P'M (P symmetric), then only the upper
+//    tiles of W = M'PM, then only the upper tiles of Y'Y, mirrored on the
+//    write into P.
+// 3. No block-wide barrier per pivot. The warps that own one column each of
+//    [Quu_h | Qux_h | Qu] run a left-looking Cholesky blocked by four pivots,
+//    with one named barrier (`bar.sync 1, n`) among themselves per block;
+//    each of them takes the damping's max with shuffles. At the same time
+//    two other warps back-substitute the previous stage's K and k (its
+//    Cholesky rows sit in a second buffer), and the remaining warps issue the
+//    next stage's copy.
+// 4. A rollout with one warp per row of [K | k] and of M, lane-strided over
+//    the row, rows loaded into registers at the top of each stage and a
+//    warp's rows reduced together with interleaved shuffles.
+// Shared memory (`make_layout`): 84 KB at (58, 21) in f32, 217 KB at (58, 35)
+// in f64, the largest case the port has; a shape beyond 227 KB is refused.
+//
+// What still holds it back (tools/profile_k1.py, which reads a phase clock
+// compiled in with -DWBMPC_K1_PHASE_CLOCK; PERF.md has the numbers). At
+// (28, 58, 21) f32 a stage takes about 31k SM cycles, 6x its share of the
+// one-SM floor: the two big products (phases 1 and 2) a little over half,
+// the blocked Cholesky a third, the P update the rest; the rollout adds
+// about an eighth of the launch. The products are limited by the SM's
+// load/store pipe rather than by its FMA rate: any other memory traffic in
+// the same phase (the stage-cost loads, a cp.async copy) slows them. The
+// Cholesky is a chain of ceil(nu / 4) dependent blocks (six at nu = 21),
+// each a barrier, a dot product over the rows above and a 4 x 4
+// factorization. The rollout is bound by how fast one SM pulls each stage's
+// 23.5 KB from L2.
 
 #include <cuda_runtime.h>
 
@@ -144,10 +152,8 @@ __device__ inline void cp_async(T* dst, const T* src) {
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-// wait until at most n of this thread's cp.async groups are pending
-template <int n>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // a barrier among the first n threads of the block (n a multiple of 32)
@@ -449,11 +455,10 @@ __global__ void __launch_bounds__(kThreads)
   K1_CLOCK_START;
   // Roles in the elimination phase: warps [0, e_warps) eliminate, a thread per
   // column of [Quu_h | Qux_h | Qu]; the next b_warps back-substitute the stage
-  // before; the rest (c_warps, maybe none) copy in the next stage's M.
-  const int e_warps = round_up(w, kWarp) / kWarp;   // at most kWarps - 1 (see launch_riccati)
-  const int n_elim = e_warps * kWarp;
-  int b_warps = round_up(nx + 1, kWarp) / kWarp;
-  if (b_warps > kWarps - e_warps) b_warps = kWarps - e_warps;
+  // before, a thread per column of [K | k]; the other c_warps (at least one,
+  // see launch_riccati) copy in the next stage's M.
+  const int e_warps = round_up(w, kWarp) / kWarp, n_elim = e_warps * kWarp;
+  const int b_warps = round_up(nx + 1, kWarp) / kWarp;
   const int c_warps = kWarps - e_warps - b_warps;
 
   load_stage(M0, A + (N - 1) * nxx, Bm + (N - 1) * nxu, d + static_cast<size_t>(N - 1) * nx,
@@ -471,14 +476,9 @@ __global__ void __launch_bounds__(kThreads)
     const T* Mc = (t & 1) ? M1 : M0;
     T* Ch = (t & 1) ? C1 : C0;       // this stage's Cholesky rows
     T* invd = (t & 1) ? D1 : D0;
-    cp_async_wait<0>();
+    cp_async_wait_all();
     __syncthreads();   // this stage's M has landed; the last stage's P update is done
     K1_MARK(0);
-    if (s > 0 && c_warps == 0) {
-      load_stage((t & 1) ? M0 : M1, A + (s - 1) * nxx, Bm + (s - 1) * nxu,
-                 d + static_cast<size_t>(s - 1) * nx, nx, nu, wp, 0, kWarps);
-      cp_async_commit();
-    }
 
     // (1) PM = P'M + [0 | 0 | p]   (P symmetric: P'M = P [B | A | d])
     {
@@ -757,9 +757,9 @@ int launch_riccati(const T* A, const T* B, const T* d, const T* Qxx, const T* Qu
   if (batch <= 0 || N <= 0 || nx <= 0 || nu <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = make_layout(nx, nu).total * sizeof(T);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  // a thread per column of [Quu_h | Qux_h | Qu] and a warp left over: every
-  // shape that fits in shared memory has w = nu + nx + 1 < 480
-  if (round_up(nu + nx + 1, kWarp) > kThreads - kWarp) {
+  // the elimination phase's three roles (see the kernel) need a warp each at
+  // least; every shape that fits in shared memory leaves seven or more for the copy
+  if (round_up(nu + nx + 1, kWarp) + round_up(nx + 1, kWarp) > kThreads - kWarp) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > 48 * 1024) {
