@@ -61,9 +61,10 @@
 // (28, 58, 21) f32 a stage takes about 31k SM cycles, 6x its share of the
 // one-SM floor: the two big products (phases 1 and 2) a little over half,
 // the blocked Cholesky a third, the P update the rest; the rollout adds
-// about an eighth of the launch. The products are limited by the SM's
-// load/store pipe rather than by its FMA rate: any other memory traffic in
-// the same phase (the stage-cost loads, a cp.async copy) slows them. The
+// about an eighth of the launch. The products run at a third of the FMA
+// rate: any other memory traffic in the same phase (the stage-cost loads, a
+// cp.async copy) slows them, and wider 4 x 8 tiles (fewer loads per FMA,
+// half the warps) were slower still. The
 // Cholesky is a chain of ceil(nu / 4) dependent blocks (six at nu = 21),
 // each a barrier, a dot product over the rows above and a 4 x 4
 // factorization. The rollout is bound by how fast one SM pulls each stage's
