@@ -1,14 +1,14 @@
 """PyTorch port, card tier: each CUDA kernel against its plain PyTorch version
 on the card, in float32 and float64, at the main path's shapes and at the
-edges of the kernels' launch geometry (a second block and a ragged tail for
+edges of the kernels' launch geometry (several blocks and a ragged tail for
 K2; for K1 the shared-memory opt-in above 48 KB, the largest case that fits
 ((28, 58, 35) in f64) and the refusal above 227 KB, N = 1 and 2 where the
 stage prefetch has nothing or one stage to fetch, widths that are not a
 multiple of the 4 x 4 tiles, nu = 1, a batch at the AL shape, and K1 on the
 AL path's unprojected LQ from real solver data; for K3 more rows than warps
-and a batch). Needs an NVIDIA card and `nvcc`; skipped
-elsewhere. This file imports no JAX, so it also runs where JAX is not
-installed:
+and a batch). K2 runs at B = 1, 28, 130 and the merit search's 224. Needs
+an NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so
+it also runs where JAX is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -53,7 +53,7 @@ def _close(got, ref, tol, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("robot", ["humanoid23", "toy_biped"])
-@pytest.mark.parametrize("B", [1, 28, 130])
+@pytest.mark.parametrize("B", [1, 28, 130, 224])
 def test_fkvel_kernel_matches_plain(card, robot, dtype, B):
     r = load_wb_model(ASSETS / robot)[1].robot
     rng = np.random.default_rng(B)

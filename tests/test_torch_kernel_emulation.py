@@ -13,7 +13,8 @@ nothing about speed, and nothing about what `nvcc` accepts: the card tier
 (tests/test_torch_cuda.py) covers that.
 
 Tolerances as tests/test_torch_riccati.py: f32 atol 2e-4 (dxs and dus scaled
-by max(|dxs|, 1)); f64 rtol 1e-9, atol 1e-10."""
+by max(|dxs|, 1)); f64 rtol 1e-9, atol 1e-10. The shim and `build_host_library`
+also serve K2's test, tests/test_torch_kernel_emulation_fkvel.py."""
 
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ SHIM = r"""
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
@@ -125,28 +127,40 @@ LAUNCH = re.compile(r"riccati_rollout_kernel<T><<<batch, kThreads, smem, "
                     r"static_cast<cudaStream_t>\(stream\)>>>\(")
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """K1's C entry points, built from csrc/riccati.cu for the host."""
+def build_host_library(directory, source: str, edits, launch: re.Pattern, host_launch: str,
+                       entry_points) -> ctypes.CDLL:
+    """Compile `csrc/<source>` for the host against SHIM: each (card, host) pair
+    of `edits` replaced by text (the card's text must be there), the one kernel
+    launch matched by `launch` replaced by `host_launch`; then load it and
+    bind `entry_points` with the signatures of `_lib._SIGNATURES`."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ (C++20) to build the kernel source for the host")
-    src = (_lib.CSRC / "riccati.cu").read_text()
-    for card, host in EDITS:
-        assert card in src, f"csrc/riccati.cu no longer contains {card!r}"
+    src = (_lib.CSRC / source).read_text()
+    for card, host in edits:
+        assert card in src, f"csrc/{source} no longer contains {card!r}"
         src = src.replace(card, host)
-    src, n = LAUNCH.subn("emu_launch(riccati_rollout_kernel<T>, batch, kThreads, smem, ", src)
+    src, n = launch.subn(host_launch, src)
     assert n == 1
-    d = tmp_path_factory.mktemp("k1_host")
-    (d / "emu_shim.h").write_text(SHIM)
-    (d / "riccati_host.cpp").write_text(src)
-    so = d / "libk1_host.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{d}",
-                    "-o", str(so), str(d / "riccati_host.cpp")], check=True, timeout=600)
+    (directory / "emu_shim.h").write_text(SHIM)
+    cpp = directory / (source.replace(".cu", "_host.cpp"))
+    cpp.write_text(src)
+    so = directory / ("lib" + source.replace(".cu", "_host.so"))
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{directory}",
+                    "-o", str(so), str(cpp)], check=True, timeout=600)
     lib = ctypes.CDLL(str(so))
-    for name in ("wbmpc_riccati_rollout_f32", "wbmpc_riccati_rollout_f64"):
+    for name in entry_points:
         getattr(lib, name).argtypes = _lib._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """K1's C entry points, built from csrc/riccati.cu for the host."""
+    lib = build_host_library(tmp_path_factory.mktemp("k1_host"), "riccati.cu", EDITS, LAUNCH,
+                             "emu_launch(riccati_rollout_kernel<T>, batch, kThreads, smem, ",
+                             ("wbmpc_riccati_rollout_f32", "wbmpc_riccati_rollout_f64"))
     lib.wbmpc_riccati_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.wbmpc_riccati_smem_bytes.restype = ctypes.c_size_t
     return lib

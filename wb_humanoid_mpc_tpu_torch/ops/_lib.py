@@ -35,8 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    "wbmpc_fkvel_f32": [_P] * 7 + [_D] + [_P] * 5 + [_I, _I, _P],
-    "wbmpc_fkvel_f64": [_P] * 7 + [_D] + [_P] * 5 + [_I, _I, _P],
+    "wbmpc_fkvel_f32": [_P] * 4 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
+    "wbmpc_fkvel_f64": [_P] * 4 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
     "wbmpc_riccati_rollout_f32": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_riccati_rollout_f64": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_forward_rollout_f32": [_P] * 8 + [_I] * 4 + [_P],

@@ -1,9 +1,10 @@
 """K2: the FK + velocity/bias tree pass as one CUDA kernel launch.
 
 PyTorch counterpart of `wb_humanoid_mpc_tpu/ops/fkvel.py`. The kernel
-(`csrc/fkvel.cu`, one thread per batch element) replaces the Pallas TPU
-kernel `_fkvel_kernel`; its plain version is the level-parallel
-`models/kinematics.py::forward_kinematics_vel` run on a batch.
+(`csrc/fkvel.cu`: one warp per batch element, the tree walked level by
+level in shared memory, joint constants folded by the tables built here) replaces the Pallas TPU kernel `_fkvel_kernel`; its plain
+version is the level-parallel `models/kinematics.py::forward_kinematics_vel`
+run on a batch.
 
 Dispatch, `fkvel_batch(model, q, v, backend)`:
   "auto"  — the kernel for CUDA tensors, the plain version for CPU tensors;
@@ -13,6 +14,10 @@ Dispatch, `fkvel_batch(model, q, v, backend)`:
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from wb_humanoid_mpc_tpu_torch.models.kinematics import (
@@ -38,21 +43,64 @@ def fkvel_plain(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK
     return forward_kinematics_vel(model, q, v)
 
 
+# joint flags and axis codes of the kernel's table (csrc/fkvel.cu)
+_IDENTITY_R, _NEGATIVE_AXIS, _GENERAL_AXIS = 1, 2, 3
+# outputs start at multiples of 4 values in the one buffer, so that the
+# kernel stores 16 bytes a lane wherever a block's range allows
+_ALIGN = 4
+
+
 def _tables(model: RobotModel, device: torch.device, dtype: torch.dtype):
-    """The joint tables the kernel reads, built once per (model, device, dtype)."""
+    """(joints, geo, n_levels): the kernel's tables, built once per (model,
+    device, dtype). In level order (`_tree_levels`), `joints` holds per joint
+    its index, parent body, axis code (0, 1, 2 for +-x, +-y, +-z; 3 for a
+    general axis) and flags (identity joint_R, negative axis), then the level
+    offsets; `geo` holds per joint jR (9), jp (3), axis (3) and jR axis (3),
+    taken in float64 and then cast."""
     key = ("fkvel", device, dtype)
     hit = model.tensor_cache.get(key)
     if hit is None:
         parents = tuple(int(p) for p in model.joint_parent_body)
-        order = [int(j) for idx in _tree_levels(parents) for j in idx]
-
-        def t(a, dt):
-            return torch.as_tensor(a, dtype=dt, device=device).contiguous()
-
-        hit = (t(order, torch.int32), t(parents, torch.int32), t(model.joint_R, dtype),
-               t(model.joint_p, dtype), t(model.joint_axis, dtype))
+        levels = _tree_levels(parents)
+        jR = np.asarray(model.joint_R, dtype=np.float64)
+        jp = np.asarray(model.joint_p, dtype=np.float64)
+        axis = np.asarray(model.joint_axis, dtype=np.float64)
+        ints, geo = [], []
+        for j in (int(j) for idx in levels for j in idx):
+            code, flags = _GENERAL_AXIS, 0
+            for k in range(3):
+                if abs(axis[j, k]) == 1.0 and not np.delete(axis[j], k).any():
+                    code = k
+                    flags |= _NEGATIVE_AXIS if axis[j, k] < 0 else 0
+            if np.array_equal(jR[j], np.eye(3)):
+                flags |= _IDENTITY_R
+            ints += [j, parents[j], code, flags]
+            geo.append(np.concatenate([jR[j].ravel(), jp[j], axis[j], jR[j] @ axis[j]]))
+        ints += np.cumsum([0] + [len(idx) for idx in levels]).tolist()
+        hit = (torch.as_tensor(ints, dtype=torch.int32, device=device),
+               torch.as_tensor(np.stack(geo), dtype=dtype, device=device).contiguous(),
+               len(levels))
         model.tensor_cache[key] = hit
     return hit
+
+
+@functools.lru_cache(maxsize=64)
+def _output_spec(B: int, n_b: int, n_j: int):
+    """(values in the buffer, [(shape, strides, offset)] of R, p, vb, axes, E)."""
+    shapes = ((B, n_b, 3, 3), (B, n_b, 3), (B, n_b, 4, 3), (B, n_j, 3), (B, 3, 3))
+    spec, offset = [], 0
+    for shape in shapes:
+        strides = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        spec.append((shape, strides, offset))
+        offset += -(-math.prod(shape) // _ALIGN) * _ALIGN
+    return offset, tuple(spec)
+
+
+def _outputs(B: int, n_b: int, n_j: int, like: torch.Tensor):
+    """R, p, vb, axes, E as contiguous views of one new buffer."""
+    total, spec = _output_spec(B, n_b, n_j)
+    buf = torch.empty(total, dtype=like.dtype, device=like.device)
+    return [buf.as_strided(shape, strides, offset) for shape, strides, offset in spec]
 
 
 def fkvel_cuda(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK, VelBias]:
@@ -67,23 +115,19 @@ def fkvel_cuda(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK,
                          f"{tuple(q.shape)}, {tuple(v.shape)}")
     q, v = q.contiguous(), v.contiguous()
     B = q.shape[0]
-    order, parent, jR, jp, axis = _tables(model, q.device, q.dtype)
-    R = torch.empty(B, n_b, 3, 3, dtype=q.dtype, device=q.device)
-    p = torch.empty(B, n_b, 3, dtype=q.dtype, device=q.device)
-    vb = torch.empty(B, n_b, 4, 3, dtype=q.dtype, device=q.device)
-    axes = torch.empty(B, n_j, 3, dtype=q.dtype, device=q.device)
-    E = torch.empty(B, 3, 3, dtype=q.dtype, device=q.device)
+    joints, geo, n_levels = _tables(model, q.device, q.dtype)
+    R, p, vb, axes, E = _outputs(B, n_b, n_j, q)
     lib = _lib.library()
     fn = lib.wbmpc_fkvel_f32 if q.dtype == torch.float32 else lib.wbmpc_fkvel_f64
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = fn(q.data_ptr(), v.data_ptr(), order.data_ptr(), parent.data_ptr(), jR.data_ptr(),
-              jp.data_ptr(), axis.data_ptr(), float(model.gravity), R.data_ptr(), p.data_ptr(),
-              vb.data_ptr(), axes.data_ptr(), E.data_ptr(), B, n_j, stream)
+    code = fn(q.data_ptr(), v.data_ptr(), joints.data_ptr(), geo.data_ptr(), float(model.gravity),
+              R.data_ptr(), p.data_ptr(), vb.data_ptr(), axes.data_ptr(), E.data_ptr(), B, n_j,
+              n_levels, stream)
     _lib.check(lib, code, "fkvel kernel")
     global LAUNCHES
     LAUNCHES += 1
     fk = FK(R=R, p=p, joint_axis_w=axes, joint_origin_w=p[:, 1:], E_base=E)
-    vel = VelBias(v_o=vb[:, :, 0], omega=vb[:, :, 1], a_o=vb[:, :, 2], domega=vb[:, :, 3])
+    vel = VelBias(*vb.unbind(2))   # rows v_o, omega, a_o, domega
     return fk, vel
 
 
