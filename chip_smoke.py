@@ -233,9 +233,12 @@ def main() -> int:
         t_k = cuda_time_ms(lambda: fkvel.fkvel_cuda(robot, q, v), 200)
         t_p = cuda_time_ms(lambda: fkvel.fkvel_plain(robot, q, v), 20)
         k2_ms[B] = (t_dev, t_p)
+        nbytes, ops = fkvel_work(B, robot.n_joints, 4)
+        b_ms, b_by = bound_ms(nbytes, ops)
         print(f"K2 fkvel B={B}: max|kernel-plain| {err:.3e}; kernel {t_dev * 1e3:.2f} us on the "
               f"device, {t_k * 1e3:.2f} us per call with its wrapper; plain {t_p * 1e3:.1f} us "
-              f"per call")
+              f"per call; bound {b_ms * 1e3:.4f} us ({b_by}: {nbytes / 1e3:.1f} KB, "
+              f"{ops / 1e6:.3f} MFLOP)")
     nbytes, ops = fkvel_work(28, robot.n_joints, 4)
     b_ms, b_by = bound_ms(nbytes, ops)
     rows["fkvel"] = dict(name="fkvel", route="cuda",
