@@ -39,7 +39,7 @@
 //   ends the level. The tree state never goes through device memory.
 // - The state is kept in shared memory in the output layout, so the block
 //   ends with five straight copies, neighbouring lanes on neighbouring
-//   addresses, 16 bytes a lane where the output range is 16-byte aligned.
+//   addresses.
 // Measured (tools/compare_k2.py, NVIDIA H100 80GB HBM3, 700 W): about 6.4 us
 // at B = 28 and 224 in f32, 6.8 us in f64, against 54 and 144 us (f32) for
 // the first design, one thread per element walking the joints through device
@@ -57,7 +57,6 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <cstdint>
 
 #ifdef WBMPC_K2_PHASE_CLOCK
 // Phase clock, for `tools/compare_k2.py --phases` only (built with
@@ -145,17 +144,6 @@ template <>
 __device__ __forceinline__ void sin_cos<double>(double x, double* s, double* c) { sincos(x, s, c); }
 
 template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  typedef float4 type;
-};
-template <>
-struct Vec16<double> {
-  typedef double2 type;
-};
-
-template <typename T>
 __device__ __forceinline__ void matmul33(const T* A, const T* B, T* C) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -209,22 +197,13 @@ __device__ __forceinline__ void copy_in(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) cp_async(dst + i, src + i);
 }
 
-// n values from shared src to device dst by the whole block, 16 bytes a lane
-// where dst is 16-byte aligned (src always is).
+// n values from shared src to device dst by the whole block, neighbouring
+// lanes on neighbouring addresses. (16-byte stores, where dst allows them,
+// were slower here: tools/compare_k2.py.)
 template <typename T>
 __device__ __forceinline__ void store_out(T* __restrict__ dst, const T* __restrict__ src, int n) {
-  typedef typename Vec16<T>::type V;
-  constexpr int w = 16 / sizeof(T);
-  int done = 0;
-  if (reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
-    const int nv = n / w;
 #pragma unroll 4
-    for (int i = threadIdx.x; i < nv; i += kThreads)
-      reinterpret_cast<V*>(dst)[i] = reinterpret_cast<const V*>(src)[i];
-    done = nv * w;
-  }
-#pragma unroll 4
-  for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
 template <typename T>

@@ -2,9 +2,10 @@
 
 PyTorch counterpart of `wb_humanoid_mpc_tpu/ops/fkvel.py`. The kernel
 (`csrc/fkvel.cu`: one warp per batch element, the tree walked level by
-level in shared memory, joint constants folded by the tables built here) replaces the Pallas TPU kernel `_fkvel_kernel`; its plain
-version is the level-parallel `models/kinematics.py::forward_kinematics_vel`
-run on a batch.
+level in shared memory, joint constants folded by the tables built here)
+replaces the Pallas TPU kernel `_fkvel_kernel`; its plain version is the
+level-parallel `models/kinematics.py::forward_kinematics_vel` run on a
+batch.
 
 Dispatch, `fkvel_batch(model, q, v, backend)`:
   "auto"  — the kernel for CUDA tensors, the plain version for CPU tensors;
@@ -45,9 +46,6 @@ def fkvel_plain(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK
 
 # joint flags and axis codes of the kernel's table (csrc/fkvel.cu)
 _IDENTITY_R, _NEGATIVE_AXIS, _GENERAL_AXIS = 1, 2, 3
-# outputs start at multiples of 4 values in the one buffer, so that the
-# kernel stores 16 bytes a lane wherever a block's range allows
-_ALIGN = 4
 
 
 def _tables(model: RobotModel, device: torch.device, dtype: torch.dtype):
@@ -92,7 +90,7 @@ def _output_spec(B: int, n_b: int, n_j: int):
     for shape in shapes:
         strides = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
         spec.append((shape, strides, offset))
-        offset += -(-math.prod(shape) // _ALIGN) * _ALIGN
+        offset += math.prod(shape)
     return offset, tuple(spec)
 
 
