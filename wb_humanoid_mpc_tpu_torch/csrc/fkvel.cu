@@ -40,11 +40,14 @@
 // - The state is kept in shared memory in the output layout, so the block
 //   ends with five straight copies, neighbouring lanes on neighbouring
 //   addresses.
-// Measured (tools/compare_k2.py, NVIDIA H100 80GB HBM3, 700 W): about 6.4 us
-// at B = 28 and 224 in f32, 6.8 us in f64, against 54 and 144 us (f32) for
-// the first design, one thread per element walking the joints through device
-// memory. Block 0's cycles (`--phases`, f32): copies in 1.5k, sin/cos 0.3k,
-// rotations and base 1.4k, the walk 3.5k (500 a level), copies out 2.0k.
+// Measured (tools/compare_k2.py, NVIDIA H100 80GB HBM3, 700 W): about 5.8 us
+// at B = 28 and 5.9 us at B = 224 in f32, 6.4 and 6.5 us in f64, against 54
+// and 143 us (f32) for the first design, one thread per element walking the
+// joints through device memory. Block 0's SM cycles (`--phases`, f32): copies
+// in 1.5k, sin/cos 0.3k, rotations and base 1.4k, the walk 3.6k (about 520 a
+// level), copies out 1.4k. Two variants were slower: 16-byte stores in the
+// copies out (6.25 us), and each chain's state kept in one lane's registers
+// with the next slot's data loaded before the barrier (the walk 4.4k cycles).
 // sincosf keeps its 32-byte stack frame (the slow path for |x| > 1e5, never
 // taken for joint angles), and f64 sincos its 40 bytes.
 //
