@@ -5,9 +5,9 @@ barriers as `std::barrier`, shared memory filled with NaN bytes), then held
 against the plain version and the Pallas kernel in interpret mode, for
 humanoid23 (7 tree levels, 23 joints) and toy_biped (6 levels, 12 joints).
 
-Batch sizes 1, 7, 28 (the main path) and 130: one block each. The outputs
-start as NaN, so a value the kernel leaves
-unwritten fails the test, as does a read of shared memory no lane wrote.
+Batch sizes 1, 7, 28 (the main path) and 130, one block per element. The
+outputs start as NaN, so a value the kernel leaves unwritten fails the test,
+as does a read of shared memory no lane wrote.
 The test says nothing about speed or about what `nvcc` accepts: the card
 tier (tests/test_torch_cuda.py) covers that.
 

@@ -146,10 +146,12 @@ def _launcher(lib, robot, q, v, outs):
         joints, geo, n_levels = fkvel._tables(robot, q.device, q.dtype)
         tables = (joints, geo)
         tail = [B, n_j, n_levels]
-    ptrs = [t.data_ptr() for t in tables] + [float(robot.gravity)] + [o.data_ptr() for o in outs]
+    ptrs = [t.data_ptr() for t in tables] + [float(robot.gravity)]
+    ptrs += [o.data_ptr() for o in outs]
 
     def launch():
-        code = fn(q.data_ptr(), v.data_ptr(), *ptrs, *tail, torch.cuda.current_stream().cuda_stream)
+        code = fn(q.data_ptr(), v.data_ptr(), *ptrs, *tail,
+                  torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"fkvel launch: CUDA error {code}")
 
