@@ -11,8 +11,9 @@ rows), the stance setup of `bench.py`, in float32:
 - the main path: warm-started whole-body SQP iterations (projection +
   filter), through K1 (`riccati.cu`) and K2 (`fkvel.cu`);
 - the split LQ solve: the sequential `backward_pass` then K3
-  (`rollout.cu`), on the main path's projected LQ (nz 21) and on the AL
-  path's unprojected one (nu 35), against `forward_pass` and K1's fused solve;
+  (`rollout.cu`, one thread-block cluster per instance), on the main path's
+  projected LQ (nz 21) and on the AL path's unprojected one (nu 35), against
+  `forward_pass` and K1's fused solve;
 - every other solver configuration (AL + merit, parallel Riccati, midpoint
   and exact sensitivities, DDP, the staged solver), a few warm-started
   solves each, against the same configuration on the plain versions.
@@ -21,7 +22,8 @@ Each path checks that its kernels were launched as the configuration
 implies, that the result is finite and that it agrees with the plain
 versions. Any failure exits non-zero. The last line is the device JSON; the
 line before it lists the kernels with their launches, errors, times and
-bounds. Without a CUDA card it exits with code 1 and prints no result.
+bounds (and, for K3, the launch floor: an empty kernel of its cluster
+grid). Without a CUDA card it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -371,6 +373,9 @@ def main() -> int:
                                 dtype=dtype, device=dev)
                 for k in ("A", "B", "d", "K", "k", "dx0")]
 
+    from wb_humanoid_mpc_tpu_torch.tools import launch_floor
+
+    empty_lib = launch_floor.build()   # the launch floor: an empty kernel of K3's geometry
     k3_err = 0.0
     k3_case = {}
     for label, args, tol in (
@@ -379,21 +384,36 @@ def main() -> int:
             ("(15,35,35)", stage_tensors(12, 15, 35, 35), K3_TOL["f32"]),
             ("(7,12,5)", stage_tensors(13, 7, 12, 5), K3_TOL["f32"]),
             ("(28,58,35) batch=4", stage_tensors(14, 28, 58, 35, batch=4), K3_TOL["f32"]),
-            ("(28,58,35) f64", stage_tensors(15, 28, 58, 35, dtype=torch.float64),
+            ("(28,58,35) f64 ring", stage_tensors(15, 28, 58, 35, dtype=torch.float64),
              K3_TOL["f64"])):
-        out_k = rollout.forward_rollout_cuda(*args)
+        A_ = args[0]
+        plan = rollout.rollout_plan(A_.shape[-3], A_.shape[-1], args[1].shape[-1], A_.dtype)
+        batch = A_.shape[0] if A_.dim() == 4 else 1
+
+        def run_k(args=args):
+            return rollout.forward_rollout_cuda(*args)
+
+        out_k = run_k()
         out_p = rollout.forward_rollout_plain(*args)
+        again = run_k()
         torch.cuda.synchronize()
         err = scaled_err(out_k, out_p, tol, f"K3 {label}")
-        t_dev = kernel_device_ms(lambda: rollout.forward_rollout_cuda(*args), 20)
-        t_k = cuda_time_ms(lambda: rollout.forward_rollout_cuda(*args), 100)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, again)):
+            raise AssertionError(f"K3 {label}: two launches on the same inputs differ")
+        t_dev = kernel_device_ms(run_k, 20)
+        t_floor = kernel_device_ms(launch_floor.empty_launcher(
+            empty_lib, batch, plan["cluster"], plan["threads"], plan["smem_bytes"]), 20)
+        t_k = cuda_time_ms(run_k, 100)
         t_p = cuda_time_ms(lambda: rollout.forward_rollout_plain(*args), 10)
-        k3_case[label] = (t_dev, t_p)
+        k3_case[label] = (t_dev, t_p, t_floor)
         if "f64" not in label:
             k3_err = max(k3_err, err)
-        print(f"K3 rollout {label}: max|kernel-plain| {err:.3e} (limit {tol:g} x max(1, "
-              f"max|ref|)); kernel {t_dev * 1e3:.2f} us on the device, {t_k * 1e3:.2f} us per "
-              f"call with its wrapper; plain {t_p * 1e3:.1f} us per call")
+        print(f"K3 rollout {label}: cluster {plan['cluster']}, {plan['slots']} stage slots and "
+              f"{plan['smem_bytes']} shared bytes a CTA, cudaOccupancyMaxActiveClusters "
+              f"{plan['max_active_clusters']}; max|kernel-plain| {err:.3e} (limit {tol:g} x "
+              f"max(1, max|ref|)); kernel {t_dev * 1e3:.2f} us on the device (launch floor "
+              f"{t_floor * 1e3:.2f} us), {t_k * 1e3:.2f} us per call with its wrapper; plain "
+              f"{t_p * 1e3:.1f} us per call")
     for label, shape in (("(28,58,35)", (28, 58, 35)), ("(28,58,21)", (28, 58, 21))):
         nbytes, ops = rollout_work(1, *shape, 4)
         b_ms, b_by = bound_ms(nbytes, ops)
@@ -406,7 +426,7 @@ def main() -> int:
                            replaces="wb_humanoid_mpc_tpu/ops/rollout.py:65",
                            max_abs_err=k3_err, ms=k3_case["(28,58,35)"][0],
                            plain_ms=k3_case["(28,58,35)"][1], bound_ms=b_ms, bound_by=b_by,
-                           library_ms=None)
+                           library_ms=None, launch_floor_ms=k3_case["(28,58,35)"][2])
 
     # ---- 7. the split LQ solve: backward_pass, then K3 ----
     fns = make_lq_functions(pb.ocp, pb.model.flow_map, scfg.dt, N_NODES, pb.bp,
@@ -522,8 +542,9 @@ def main() -> int:
                       "card": card}))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r[k] for k in keys} for r in (rows["riccati"], rows["fkvel"], rows["rollout"])]
+            "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
+    kernels = [{k: r[k] for k in keys if k in r}
+               for r in (rows["riccati"], rows["fkvel"], rows["rollout"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

@@ -5,10 +5,13 @@ K2; for K1 the shared-memory opt-in above 48 KB, the largest case that fits
 ((28, 58, 35) in f64) and the refusal above 227 KB, N = 1 and 2 where the
 stage prefetch has nothing or one stage to fetch, widths that are not a
 multiple of the 4 x 4 tiles, nu = 1, a batch at the AL shape, and K1 on the
-AL path's unprojected LQ from real solver data; for K3 more rows than warps
-and a batch). K2 runs at B = 1, 28, 130 and the merit search's 224. Needs
-an NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so
-it also runs where JAX is not installed:
+AL path's unprojected LQ from real solver data; for K3 the cluster
+geometry: the kernel's own plan, the f64 (28, 58, 35) ring of 3 slots for
+4 stages a CTA, N below the cluster of 8 (one stage a rank), a forced ring
+in f32, the refusal of ranks without stages, inputs off 16-byte alignment,
+batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224. Needs an
+NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
+also runs where JAX is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -140,7 +143,8 @@ def _stages(seed, N, nx, nu, dtype, card, batch=None):
 @pytest.mark.parametrize("shape", [(28, 58, 35), (28, 58, 21), (15, 35, 35), (7, 12, 5)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_rollout_kernel_matches_plain(card, shape, dtype):
-    """nx 58 is more rows than the block's 32 warps: a warp takes two."""
+    """The kernel's own plan: C = min(8, N, stage data / 16 KB), as many
+    slots as fit (in f64 at (28, 58, 35) a ring of 3 for 4 stages a CTA)."""
     args = _stages(sum(shape), *shape, dtype, card)
     before = rollout.LAUNCHES
     got = rollout.forward_rollout_cuda(*args)
@@ -155,6 +159,88 @@ def test_rollout_kernel_batch(card, dtype):
     got = rollout.forward_rollout_cuda(*args)
     assert got[0].shape == (3, 29, 58) and got[1].shape == (3, 28, 35)
     _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], "K3 batch")
+
+
+def _rollout_forced(args, cluster, slots):
+    """K3 with a cluster size and slots per CTA that no shape's plan takes,
+    through the C entry point that the tests alone use: (return code, dxs, dus)."""
+    from wb_humanoid_mpc_tpu_torch.ops import _lib
+
+    A, B = args[0], args[1]
+    N, nx, nu = A.shape[-3], A.shape[-1], B.shape[-1]
+    dxs = torch.full((N + 1, nx), float("nan"), dtype=A.dtype, device=A.device)
+    dus = torch.full((N, nu), float("nan"), dtype=A.dtype, device=A.device)
+    lib = _lib.library()
+    fn = (lib.wbmpc_forward_rollout_ex_f32 if A.dtype == torch.float32
+          else lib.wbmpc_forward_rollout_ex_f64)
+    code = fn(*(a.data_ptr() for a in args), dxs.data_ptr(), dus.data_ptr(), 1, N, nx, nu,
+              cluster, slots, torch.cuda.current_stream().cuda_stream)
+    return code, dxs, dus
+
+
+@pytest.mark.parametrize("case", [
+    ((28, 58, 35), torch.float64, None, None),   # the plan's ring: 4 stages a CTA, 3 slots
+    ((7, 12, 5), torch.float32, 7, 1),           # N below 8: one stage a rank
+    ((8, 12, 5), torch.float64, 8, 1),           # the largest cluster, one stage a rank
+    ((15, 35, 35), torch.float32, 2, 2),         # 8 stages a rank through 2 slots
+], ids=["ring-f64", "C=N=7-f32", "C=N=8-f64", "ring-f32"])
+def test_rollout_kernel_cluster_geometry(card, case):
+    shape, dtype, cluster, slots = case
+    args = _stages(sum(shape) + 1, *shape, dtype, card)
+    if cluster is None:
+        plan = rollout.rollout_plan(*shape, dtype)
+        assert (plan["cluster"], plan["slots"]) == (8, 3)
+        assert plan["smem_bytes"] <= 232448 and plan["max_active_clusters"] >= 1
+        got = rollout.forward_rollout_cuda(*args)
+    else:
+        code, *got = _rollout_forced(args, cluster, slots)
+        assert code == 0
+    _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], f"K3 {case}")
+
+
+def test_rollout_kernel_refuses_ranks_without_stages(card):
+    """A cluster larger than N or than 8, or more slots than a rank has
+    stages: refused before any launch."""
+    args = _stages(3, 7, 12, 5, torch.float32, card)
+    for cluster, slots in ((8, 0), (9, 0), (2, 5)):
+        code, dxs, _ = _rollout_forced(args, cluster, slots)
+        torch.cuda.synchronize()
+        assert code != 0 and bool(dxs.isnan().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rollout_kernel_is_bit_reproducible(card, dtype):
+    """Which stages a rank folds depends on the plan alone, not on when dx
+    comes: ten launches on the same inputs give the same bits."""
+    args = _stages(9, 28, 58, 35, dtype, card, batch=4)
+    first = rollout.forward_rollout_cuda(*args)
+    for _ in range(9):
+        again = rollout.forward_rollout_cuda(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rollout_kernel_unaligned_inputs(card, dtype):
+    """Inputs that are views one value into a larger buffer: no array starts
+    16-byte aligned, so each stage's bulk copies start at another lead."""
+    args = []
+    for a in _stages(8, 28, 58, 35, dtype, card):
+        buf = torch.empty(a.numel() + 1, dtype=dtype, device=card)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 != 0
+        args.append(view)
+    got = rollout.forward_rollout_cuda(*args)
+    _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], "K3 unaligned inputs")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rollout_kernel_batch_of_four(card, dtype):
+    """Four clusters at (28, 58, 35): 32 CTAs; in f64 each through its ring."""
+    args = _stages(6, 28, 58, 35, dtype, card, batch=4)
+    got = rollout.forward_rollout_cuda(*args)
+    assert got[0].shape == (4, 29, 58) and got[1].shape == (4, 28, 35)
+    _close(got, rollout.forward_rollout_plain(*args), K3_TOL[dtype], "K3 batch of four")
 
 
 def test_riccati_kernel_on_the_al_path_lq(card):

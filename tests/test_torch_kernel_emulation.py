@@ -14,7 +14,11 @@ nothing about speed, and nothing about what `nvcc` accepts: the card tier
 
 Tolerances as tests/test_torch_riccati.py: f32 atol 2e-4 (dxs and dus scaled
 by max(|dxs|, 1)); f64 rtol 1e-9, atol 1e-10. The shim and `build_host_library`
-also serve K2's test, tests/test_torch_kernel_emulation_fkvel.py."""
+also serve K2's and K3's tests, tests/test_torch_kernel_emulation_fkvel.py and
+tests/test_torch_kernel_emulation_rollout.py; the shim's cluster part (the
+CTAs of a cluster as threads of one process, DSMEM as a pointer into the
+peer's buffer, the mbarrier as a counter and a condition variable, the
+cluster barrier as a `std::barrier`) serves K3's."""
 
 from __future__ import annotations
 
@@ -36,11 +40,17 @@ FIELDS = ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu", "QN", "qN", "dx0")
 
 SHIM = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
+#include <cstring>
+#include <map>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <vector>
 #define __global__
@@ -71,7 +81,7 @@ struct EmuBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<double> slots;
 };
-inline EmuBlock* emu_block;
+inline thread_local EmuBlock* emu_block;
 inline thread_local unsigned char* emu_smem;
 inline void __syncthreads() { emu_block->block_bar->arrive_and_wait(); }
 inline void emu_named_sync(int n) {
@@ -99,16 +109,151 @@ void emu_launch(K kernel, int grid, int block, size_t smem, Args... args) {
     e.block_bar = &bar;
     for (int w = 0; w < block / 32; ++w) e.warp_bar.emplace_back(new std::barrier<>(32));
     e.slots.resize(block);
-    emu_block = &e;
     std::vector<std::thread> threads;
     for (int t = 0; t < block; ++t) {
       threads.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = block; emu_smem = e.smem;
+        threadIdx.x = t; blockIdx.x = b; blockDim.x = block; emu_smem = e.smem; emu_block = &e;
         kernel(args...);
       });
     }
     for (auto& th : threads) th.join();
   }
+}
+// ---- thread-block clusters: the CTAs of one cluster run at once, as threads
+// of one process; clusters run one after another ----
+struct EmuCopy { void* dst; const void* src; size_t n; };
+struct EmuMbar {             // an mbarrier: arrivals and bytes to go in the current phase
+  std::mutex mu;
+  std::condition_variable cv;
+  unsigned expected = 0, pending = 0, phase = 0;
+  long long tx = 0;
+  std::vector<std::pair<EmuCopy, bool>> copies;   // queued copies, whether each counts as tx
+};
+struct EmuCluster {
+  std::vector<unsigned char*> smem;   // each CTA's shared memory, smem_bytes each
+  size_t smem_bytes = 0;
+  std::unique_ptr<std::barrier<>> bar;
+  std::mutex mu;
+  std::map<size_t, std::unique_ptr<EmuMbar>> mbars;   // by (rank, shared offset)
+  std::atomic<bool> failed{false};
+};
+inline thread_local EmuCluster* emu_cluster;
+inline thread_local unsigned emu_rank;
+inline thread_local std::optional<std::barrier<>::arrival_token> emu_token;
+inline std::chrono::seconds emu_wait_limit{60};
+inline void* emu_peer(const void* p, unsigned rank) {   // DSMEM: the peer's shared buffer
+  const size_t off = static_cast<const unsigned char*>(p) - emu_smem;
+  return emu_cluster->smem.at(rank) + off;
+}
+inline EmuMbar& emu_mbar(const void* p) {   // p: an address in some CTA's shared memory
+  const unsigned char* c = static_cast<const unsigned char*>(p);
+  std::lock_guard<std::mutex> g(emu_cluster->mu);
+  for (size_t r = 0; r < emu_cluster->smem.size(); ++r) {
+    const unsigned char* base = emu_cluster->smem[r];
+    if (c >= base && c < base + emu_cluster->smem_bytes) {
+      auto& m = emu_cluster->mbars[(r << 32) | static_cast<size_t>(c - base)];
+      if (!m) m.reset(new EmuMbar);
+      return *m;
+    }
+  }
+  std::abort();
+}
+inline void emu_mbar_init(void* p, unsigned count) {
+  EmuMbar& m = emu_mbar(p);
+  std::lock_guard<std::mutex> g(m.mu);
+  m.expected = m.pending = count;
+  m.phase = 0;
+  m.tx = 0;
+}
+inline void emu_mbar_advance(EmuMbar& m) {   // under m.mu: end the phase if nothing is left
+  if (m.pending == 0 && m.tx == 0 && m.copies.empty()) {
+    m.pending = m.expected;
+    ++m.phase;
+    m.cv.notify_all();
+  }
+}
+inline void emu_mbar_arrive(void* p, unsigned long long tx = 0) {
+  EmuMbar& m = emu_mbar(p);
+  std::lock_guard<std::mutex> g(m.mu);
+  if (m.expected == 0 || m.pending == 0) { emu_cluster->failed = true; return; }
+  --m.pending;
+  m.tx += static_cast<long long>(tx);
+  emu_mbar_advance(m);
+  m.cv.notify_all();   // a waiter may now land the queued copies
+}
+inline void emu_mbar_expect_tx(void* p, unsigned bytes) { emu_mbar_arrive(p, bytes); }
+// queue a copy that completes on the mbarrier (counting its bytes against the
+// expected ones if `tx`); it lands when a thread waits on that mbarrier
+inline void emu_mbar_copy(void* p, EmuCopy c, bool tx) {
+  EmuMbar& m = emu_mbar(p);
+  std::lock_guard<std::mutex> g(m.mu);
+  m.copies.push_back({c, tx});
+}
+// wait until phase `parity` has completed, landing the queued copies first; a
+// wait past emu_wait_limit marks the launch failed (the kernel runs on with
+// what it has)
+inline void emu_mbar_wait(void* p, unsigned parity) {
+  EmuMbar& m = emu_mbar(p);
+  std::unique_lock<std::mutex> g(m.mu);
+  const auto deadline = std::chrono::steady_clock::now() + emu_wait_limit;
+  while ((m.phase & 1u) == (parity & 1u)) {
+    if (m.pending == 0 && !m.copies.empty()) {   // every arrival is in: land the copies
+      for (auto& [c, tx] : m.copies) {
+        std::memcpy(c.dst, c.src, c.n);
+        if (tx) m.tx -= static_cast<long long>(c.n);
+      }
+      m.copies.clear();
+      emu_mbar_advance(m);
+      continue;
+    }
+    if (m.cv.wait_until(g, deadline) == std::cv_status::timeout) {
+      emu_cluster->failed = true;
+      return;
+    }
+  }
+}
+inline void emu_cluster_arrive() { emu_token.emplace(emu_cluster->bar->arrive()); }
+inline void emu_cluster_wait() {
+  emu_cluster->bar->wait(std::move(*emu_token));
+  emu_token.reset();
+}
+template <class K, class... Args>
+int emu_launch_clusters(K kernel, int n_clusters, int size, int block, size_t smem,
+                        Args... args) {
+  bool failed = false;
+  for (int c = 0; c < n_clusters; ++c) {
+    EmuCluster cl;
+    cl.bar.reset(new std::barrier<>(size * block));
+    cl.smem_bytes = smem;
+    std::vector<std::unique_ptr<EmuBlock>> blocks;
+    std::vector<std::vector<unsigned char>> shared;
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    for (int r = 0; r < size; ++r) {
+      shared.emplace_back(smem, 0xFF);
+      bars.emplace_back(new std::barrier<>(block));
+      blocks.emplace_back(new EmuBlock);
+      EmuBlock& e = *blocks.back();
+      e.smem = shared.back().data();
+      e.block_bar = bars.back().get();
+      for (int w = 0; w < block / 32; ++w) e.warp_bar.emplace_back(new std::barrier<>(32));
+      e.slots.resize(block);
+      cl.smem.push_back(e.smem);
+    }
+    std::vector<std::thread> threads;
+    for (int r = 0; r < size; ++r) {
+      for (int t = 0; t < block; ++t) {
+        threads.emplace_back([&, r, t] {
+          threadIdx.x = t; blockIdx.x = c * size + r; blockDim.x = block;
+          emu_block = blocks[r].get(); emu_smem = blocks[r]->smem;
+          emu_cluster = &cl; emu_rank = r;
+          kernel(args...);
+        });
+      }
+    }
+    for (auto& th : threads) th.join();
+    failed = failed || cl.failed;
+  }
+  return failed ? 1 : 0;
 }
 """
 
@@ -127,12 +272,12 @@ LAUNCH = re.compile(r"riccati_rollout_kernel<T><<<batch, kThreads, smem, "
                     r"static_cast<cudaStream_t>\(stream\)>>>\(")
 
 
-def build_host_library(directory, source: str, edits, launch: re.Pattern, host_launch: str,
-                       entry_points) -> ctypes.CDLL:
+def build_host_library(directory, source: str, edits, launch: re.Pattern | None,
+                       host_launch: str, entry_points) -> ctypes.CDLL:
     """Compile `csrc/<source>` for the host against SHIM: each (card, host) pair
     of `edits` replaced by text (the card's text must be there), the one kernel
-    launch matched by `launch` replaced by `host_launch`; then load it and
-    bind `entry_points` with the signatures of `_lib._SIGNATURES`."""
+    launch matched by `launch` (if any) replaced by `host_launch`; then load it
+    and bind `entry_points` with the signatures of `_lib._SIGNATURES`."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ (C++20) to build the kernel source for the host")
@@ -140,8 +285,9 @@ def build_host_library(directory, source: str, edits, launch: re.Pattern, host_l
     for card, host in edits:
         assert card in src, f"csrc/{source} no longer contains {card!r}"
         src = src.replace(card, host)
-    src, n = launch.subn(host_launch, src)
-    assert n == 1
+    if launch is not None:
+        src, n = launch.subn(host_launch, src)
+        assert n == 1
     (directory / "emu_shim.h").write_text(SHIM)
     cpp = directory / (source.replace(".cu", "_host.cpp"))
     cpp.write_text(src)

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "wbmpc_riccati_rollout_f64": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_forward_rollout_f32": [_P] * 8 + [_I] * 4 + [_P],
     "wbmpc_forward_rollout_f64": [_P] * 8 + [_I] * 4 + [_P],
+    "wbmpc_forward_rollout_ex_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "wbmpc_forward_rollout_ex_f64": [_P] * 8 + [_I] * 6 + [_P],
+    "wbmpc_forward_rollout_plan": [_I] * 4 + [_P],
 }
 
 

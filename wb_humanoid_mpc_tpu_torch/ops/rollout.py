@@ -2,15 +2,22 @@
 kernel launch, given the Riccati gains.
 
 PyTorch counterpart of `wb_humanoid_mpc_tpu/ops/rollout.py`. The kernel
-(`csrc/rollout.cu`, one thread block per problem instance) replaces the
-Pallas TPU kernel `_rollout_kernel`; its plain version is the ported
+(`csrc/rollout.cu`, one thread-block cluster per problem instance, each CTA
+holding a range of stages in its shared memory and handing dx to the next)
+replaces the Pallas TPU kernel `_rollout_kernel`; its plain version is the ported
 `solver/riccati.py::forward_pass`. Together with the sequential
 `backward_pass` it makes the split LQ solve, the unfused alternative to K1
 (`ops/riccati.py`).
 
 `forward_rollout_cuda` / `forward_rollout_plain` take (A, B, d, K, k, dx0)
 with an optional leading batch of instances and return (dxs [.., N+1, nx],
-dus [.., N, nu]). Dispatch, `forward_rollout(lq, sol, dx0, backend)`:
+dus [.., N, nu]). `rollout_plan` gives the launch geometry the kernel takes
+for a shape (cluster size, stage slots per CTA, shared bytes per CTA, how
+many such clusters the card holds at once, threads per CTA);
+`forward_rollout_cuda` raises if that last is 0. A wait inside the kernel
+that outlasts 10 s (a fault of the kernel, never a slow card) traps, and the
+process's CUDA context is unusable afterwards.
+Dispatch, `forward_rollout(lq, sol, dx0, backend)`:
   "auto"  — the kernel for CUDA tensors, the plain version for CPU tensors;
   "cuda"  — the kernel (raises for tensors that are not on a CUDA device);
   "plain" — the plain version on any device (to hold the kernel against it).
@@ -20,6 +27,7 @@ The JAX package's names are accepted too: "pallas" is "cuda", "scan" is
 
 from __future__ import annotations
 
+import ctypes
 import types
 
 import numpy as np
@@ -46,6 +54,32 @@ def forward_rollout_plain(A, B, d, K, k, dx0):
                         dx0)
 
 
+_PLANS: dict = {}
+
+
+def rollout_plan(N: int, nx: int, nu: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch geometry for one instance of a shape: cluster size,
+    stage slots per CTA, shared bytes per CTA, `cudaOccupancyMaxActiveClusters`
+    and threads per CTA.
+    Raises if the shape does not fit or the card cannot hold one such cluster."""
+    key = (N, nx, nu, dtype)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = _lib.library()
+        out = (ctypes.c_int * 5)()
+        itemsize = 4 if dtype == torch.float32 else 8
+        code = lib.wbmpc_forward_rollout_plan(N, nx, nu, itemsize, out)
+        _lib.check(lib, code, f"forward rollout plan for (N, nx, nu) = ({N}, {nx}, {nu})")
+        plan = dict(cluster=out[0], slots=out[1], smem_bytes=out[2], max_active_clusters=out[3],
+                    threads=out[4])
+        if plan["max_active_clusters"] < 1:
+            raise RuntimeError(f"forward rollout: the card cannot schedule a cluster of "
+                               f"{plan['cluster']} CTAs with {plan['smem_bytes']} shared "
+                               f"bytes each")
+        _PLANS[key] = plan
+    return plan
+
+
 def forward_rollout_cuda(A, B, d, K, k, dx0):
     """Launch the kernel on the current stream; same contract as the plain version."""
     args = dict(zip(_FIELDS, (A, B, d, K, k, dx0)))
@@ -68,6 +102,7 @@ def forward_rollout_cuda(A, B, d, K, k, dx0):
     ins = [a.contiguous() for a in args.values()]
     dxs = torch.empty(*lead, N + 1, nx, dtype=dtype, device=dev)
     dus = torch.empty(*lead, N, nu, dtype=dtype, device=dev)
+    rollout_plan(N, nx, nu, dtype)
     lib = _lib.library()
     fn = (lib.wbmpc_forward_rollout_f32 if dtype == torch.float32
           else lib.wbmpc_forward_rollout_f64)

@@ -5,7 +5,7 @@ version and time them in turns, on one card.
 
 With no source, the package's `csrc/fkvel.cu`. Each source is compiled
 alone with the kernel library's flags (one `nvcc` each, all started
-together, beside an empty kernel). A source takes either the level tables of
+together). A source takes either the level tables of
 `ops/fkvel.py::_tables` or the joint-order tables of the first K2 design
 (`order`, `parent`, `jR`, `jp`, `axis`; recognised by its `const int* order`
 parameter), so an older commit's source, unpacked by `git archive`, can be
@@ -16,7 +16,7 @@ prints each source's error against `fkvel_plain` (f32 within
 `chip_smoke.K2_TOL`, f64 within 1e-9) and the device time of one launch
 (`chip_smoke.kernel_device_ms`: launches queued behind a sleep kernel), and
 for each B the launch floor: the device time of an empty kernel of the same
-grid, launched through `ctypes` and queued the same way. `--phases` also
+grid (`tools/launch_floor.py`), queued the same way. `--phases` also
 builds each level-table source with `-DWBMPC_K2_PHASE_CLOCK` and splits
 block 0's SM cycles by phase (copies in, sin/cos, joint rotations and base,
 tree walk, copies out) at B = 28 and 224. The sources
@@ -35,18 +35,11 @@ import numpy as np
 import torch
 
 from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel
+from wb_humanoid_mpc_tpu_torch.tools import launch_floor
 
 REPO = Path(__file__).resolve().parents[2]
 BATCHES = (1, 28, 56, 130, 168, 224)
 DTYPES = (torch.float32, torch.float64)
-EMPTY_SOURCE = r"""
-#include <cuda_runtime.h>
-__global__ void empty_kernel() {}
-extern "C" int wbmpc_empty(int blocks, int threads, void* stream) {
-  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}
-"""
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # the first design's entry point: q, v, order, parent, jR, jp, axis, gravity,
 # R, p, vb, axes, E, B, n_j, stream
@@ -69,11 +62,8 @@ def _build(sources: list[Path], phases: bool):
     library per level-table source or None)."""
     out_dir = _lib.BUILD_DIR / "compare_k2"
     out_dir.mkdir(parents=True, exist_ok=True)
-    empty = out_dir / "empty.cu"
-    empty.write_text(EMPTY_SOURCE)
     by_order = [("const int* order" in src.read_text()) for src in sources]
-    jobs = [(src, [], out_dir / f"{src.stem}_{_lib._digest([src])}.so")
-            for src in [*sources, empty]]
+    jobs = [(src, [], out_dir / f"{src.stem}_{_lib._digest([src])}.so") for src in sources]
     if phases:
         jobs += [(src, [CLOCK_FLAG], out_dir / f"{src.stem}_clock_{_lib._digest([src])}.so")
                  for src, old in zip(sources, by_order) if not old]
@@ -86,16 +76,13 @@ def _build(sources: list[Path], phases: bool):
                               or "stack frame" in line):
                 print(f"  ptxas {src.name}: {line.strip()}")
     libs = [_bind(so, old) for (_, _, so), old in zip(jobs, by_order)]
-    empty_lib = ctypes.CDLL(str(jobs[len(sources)][2]))
-    empty_lib.wbmpc_empty.argtypes = [_I, _I, _P]
-    empty_lib.wbmpc_empty.restype = ctypes.c_int
-    clocks = iter(_bind(so, False) for _, _, so in jobs[len(sources) + 1:])
-    clock_libs = [None if old else next(clocks) for old in by_order]
+    clocks = iter(_bind(so, False) for _, _, so in jobs[len(sources):])
+    clock_libs = [next(clocks) if phases and not old else None for old in by_order]
     for lib in clock_libs:
         if lib is not None:
             lib.wbmpc_fkvel_phase_cycles.argtypes = [_P, _I]
             lib.wbmpc_fkvel_phase_cycles.restype = ctypes.c_int
-    return libs, empty_lib, clock_libs
+    return libs, launch_floor.build(), clock_libs
 
 
 def _phase_cycles(lib, launch, device_ms) -> tuple[np.ndarray, float]:
@@ -193,11 +180,7 @@ def main(argv=None) -> int:
     for rnd in range(args.rounds):
         parts = []
         for B in BATCHES:
-            def empty(B=B):
-                code = empty_lib.wbmpc_empty(B, 32, torch.cuda.current_stream().cuda_stream)
-                if code != 0:
-                    raise RuntimeError(f"empty kernel: CUDA error {code}")
-
+            empty = launch_floor.empty_launcher(empty_lib, B, 1, 32, 0)
             parts.append(f"B={B} {chip_smoke.kernel_device_ms(empty, 50) * 1e3:.3f} us")
         print(f"round {rnd} launch floor (empty kernel, B blocks of 32 threads): "
               + " | ".join(parts), flush=True)
