@@ -176,6 +176,177 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _recording(runtime, riccati, fkvel):
+    """Wrap runtime.advance to record, per solve, its time t0, its stats, the
+    policy's xs, us and contact flags, and the K1 and K2 launches it made."""
+    orig = runtime.advance
+    record = []
+
+    def advance(t0, *args, **kwargs):
+        before = (riccati.LAUNCHES, fkvel.LAUNCHES)
+        stats = orig(t0, *args, **kwargs)
+        pol = runtime.policy
+        record.append(dict(t0=t0, stats=stats, xs=pol.xs.copy(), us=pol.us.copy(),
+                           flags=pol.contact_flags.copy(), k1=riccati.LAUNCHES - before[0],
+                           k2=fkvel.LAUNCHES - before[1]))
+        return stats
+
+    runtime.advance = advance
+    return record
+
+
+def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
+    """`build_wb_mpc` / `build_centroidal_mpc` + `run_dummy_sim` on
+    humanoid23 at N = 28, f32, the builders' iteration count (2): a 1.0 s
+    stance run at 50 Hz plant / 25 Hz MPC (25 solves) per formulation and,
+    whole-body, a 1.2 s run with `request_gait("trot")` at t = 0.3 s. The
+    first 3 ticks of each stance run are held against the same loop on the
+    plain versions; the behaviour checks mirror tests/test_dummy_sim.py."""
+    from wb_humanoid_mpc_tpu_torch.core.config import load_reference_config, load_task_config
+    from wb_humanoid_mpc_tpu_torch.interface import (
+        ASSETS,
+        build_centroidal_mpc,
+        build_wb_mpc,
+        mpc_files,
+    )
+    from wb_humanoid_mpc_tpu_torch.sim.dummy import run_dummy_sim
+
+    out = {}
+    for form, build in (("wb", build_wb_mpc), ("centroidal", build_centroidal_mpc)):
+        files = mpc_files(ASSETS / "humanoid23", form)
+        kw = dict(n_nodes=N_NODES)
+        if form == "wb":   # dt from the task file; the centroidal dt = horizon / N
+            kw["dt_override"] = load_task_config(files[1], "wb", 1, 1).sqp.dt
+        mpc = build(*files, **kw, device="cuda")
+        plain = build(*files, **kw, solver_overrides=dict(rollout_backend="plain",
+                                                          flow_backend="plain"), device="cuda")
+        nx, nu = mpc.model.state_dim, mpc.model.input_dim
+        z_idx = 8 if form == "centroidal" else 2
+        n_j = mpc.model.layout.n_joints
+        z_ref = load_reference_config(files[2], n_j).default_base_height
+        print(f"closed loop {form}: humanoid23 nx {nx} nu {nu} n_eq {mpc.ocp.n_eq} N "
+              f"{mpc.n_nodes} dt {mpc.dt:.6g} horizon {mpc.n_nodes * mpc.dt:.6g} s, f32, "
+              f"50 Hz plant / 25 Hz MPC")
+
+        # one solve first: the timings below are of a warm process
+        mpc.runtime.advance(0.0, mpc.initial_state, np.zeros(4))
+        runs = [("stance", 1.0, None)]
+        if form == "wb":
+            runs.append(("trot", 1.2, 0.3))
+        result = {}
+        for run, duration, trot_at in runs:
+            rt = mpc.runtime
+            rt.reset()
+            record = _recording(rt, riccati, fkvel)
+            fired, gaits = [], []
+
+            def command_fn(t, trot_at=trot_at, fired=fired, gaits=gaits, mm=mpc.motion_manager):
+                if trot_at is not None and t >= trot_at and not fired:
+                    mm.request_gait("trot")
+                    fired.append(t)
+                gaits.append(mm.current_gait)
+                return np.zeros(4)
+
+            for mod in (riccati, fkvel, rollout):
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            log = run_dummy_sim(rt, mpc.initial_state, duration, 50.0, 25.0,
+                                command_fn=command_fn, flow=mpc.model.flow_map)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES, "K3": rollout.LAUNCHES}
+            del rt.advance   # the recording wrapper
+            stats = [r["stats"] for r in record]
+            # launch counts, the normal and the recovery solves apart
+            for rec in (False, True):
+                sel = [r for r in record if r["stats"].recovery == rec]
+                n_it = sum(r["stats"].iterations for r in sel)
+                k1, k2 = sum(r["k1"] for r in sel), sum(r["k2"] for r in sel)
+                if k1 != n_it:
+                    raise AssertionError(f"closed loop {form} {run}: K1 launched {k1} times in "
+                                         f"{n_it} SQP iterations (recovery solves: {rec})")
+                lo, hi = (6 * n_it, 9 * n_it) if form == "wb" else (0, 0)
+                if not lo <= k2 <= hi:
+                    raise AssertionError(f"closed loop {form} {run}: K2 launched {k2} times in "
+                                         f"{n_it} SQP iterations, expected {lo}..{hi}")
+            if (launches["K1"] != sum(r["k1"] for r in record)
+                    or launches["K2"] != sum(r["k2"] for r in record) or launches["K3"] != 0):
+                raise AssertionError(f"closed loop {form} {run}: launches outside the solves "
+                                     f"{launches}")
+            # behaviour (tests/test_dummy_sim.py)
+            if not np.isfinite(log.states).all():
+                raise AssertionError(f"closed loop {form} {run}: non-finite state")
+            z = log.states[:, z_idx]
+            if run == "stance":
+                if not np.abs(z - z_ref).max() < 0.03:
+                    raise AssertionError(f"closed loop {form} stance: base height "
+                                         f"{z.min():.4f}..{z.max():.4f} vs {z_ref}")
+                if not (log.contact_flags > 0.5).all():
+                    raise AssertionError(f"closed loop {form} stance: a foot left the ground")
+                worst_g = max(s_.g_norm for s_ in stats)
+                if not worst_g < 5e-2:
+                    raise AssertionError(f"closed loop {form} stance: g_norm {worst_g:.3e}")
+                kernel_record = record
+            else:
+                # the request applies at the next solve; the solves after it
+                # plan single-support phases (the 0.4 s transition stance and
+                # the insertion point put them beyond this run's end)
+                if "trot" not in gaits:
+                    raise AssertionError("closed loop wb trot: the request never applied")
+                planned = [r for r in record if r["t0"] >= fired[0]]
+                if not any((r["flags"].sum(axis=1) < 2).any() for r in planned):
+                    raise AssertionError("closed loop wb trot: no single-support phase planned")
+            solve_ms = np.array([s.solve_time for s in stats]) * 1e3
+            ref_ms = np.array([s.reference_time for s in stats]) * 1e3
+            row = dict(solves=len(stats), recovery_solves=sum(s.recovery for s in stats),
+                       iterations=sum(s.iterations for s in stats),
+                       solve_ms_p50=float(np.percentile(solve_ms, 50)),
+                       solve_ms_p90=float(np.percentile(solve_ms, 90)),
+                       reference_ms_p50=float(np.percentile(ref_ms, 50)),
+                       ticks_per_s=len(log.times) / wall, n_warm_resets=rt.n_warm_resets,
+                       launches=launches, g_norm_max=float(max(s.g_norm for s in stats)),
+                       height=[float(z.min()), float(z.max())],
+                       single_support_ticks=int((log.contact_flags.sum(axis=1) < 2).sum()))
+            result[run] = row
+            print(f"closed loop {form} {run}: {row['solves']} solves ({row['recovery_solves']} "
+                  f"recovery), {row['iterations']} SQP iterations; solve p50 "
+                  f"{row['solve_ms_p50']:.2f} ms p90 {row['solve_ms_p90']:.2f} ms; reference p50 "
+                  f"{row['reference_ms_p50']:.2f} ms; {row['ticks_per_s']:.3f} ticks/s of wall "
+                  f"time; n_warm_resets {row['n_warm_resets']}; launches {launches}; base height "
+                  f"{z.min():.4f}..{z.max():.4f} (reference {z_ref}); max g_norm "
+                  f"{row['g_norm_max']:.3e} | {card}")
+
+        # the first 3 ticks against the plain versions
+        plain.runtime.reset()
+        precord = _recording(plain.runtime, riccati, fkvel)
+        run_dummy_sim(plain.runtime, plain.initial_state, 3 * 2 / 50.0, 50.0, 25.0,
+                      flow=plain.model.flow_map)
+        errs = []
+        del plain.runtime.advance
+        for k in range(3):
+            kr, pr = kernel_record[k], precord[k]
+            if pr["k1"] or pr["k2"]:
+                raise AssertionError(f"closed loop {form}: the plain twin launched a kernel")
+            for what in ("xs", "us"):
+                a_, b_ = kr[what], pr[what]
+                err = float(np.abs(a_ - b_).max())
+                limit = SOLVE_TOL * max(1.0, float(np.abs(b_).max()))
+                if not err <= limit:
+                    raise AssertionError(f"closed loop {form} tick {k}: kernels and plain "
+                                         f"versions disagree on {what}: {err:.3e} > {limit:.3e}")
+                errs.append(err)
+            if kr["stats"].step_size != pr["stats"].step_size:
+                raise AssertionError(f"closed loop {form} tick {k}: kernels took step "
+                                     f"{kr['stats'].step_size}, plain versions "
+                                     f"{pr['stats'].step_size}")
+        print(f"closed loop {form}: first 3 ticks vs plain versions max|dxs|, |dus| "
+              f"{max(errs[0::2]):.3e}, {max(errs[1::2]):.3e} (limit {SOLVE_TOL} x max(1, "
+              f"max|ref|)), the same steps")
+        result["vs_plain_max_err"] = max(errs)
+        out[form] = result
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -540,6 +711,10 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB | {card}")
     print(json.dumps({"config_it_per_s": config_rates, "main_path_it_per_s": sustained,
                       "card": card}))
+
+    # ---- 9. the closed loop, both formulations, humanoid23 at N = 28 ----
+    loops = closed_loops(torch, riccati, fkvel, rollout, card)
+    print(json.dumps({"closed_loop": loops, "card": card}))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launch_floor_ms")

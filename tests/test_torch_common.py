@@ -76,6 +76,48 @@ def port_wb(robot: str):
     return cfg, model, PortWholeBodyOcp(model=model, cfg=cfg)
 
 
+def _centroidal_setup(load_task, layout_cls, build_robot, mpc_joint_names_, load_ref,
+                      model_cls, ocp_cls, robot: str, srbm: bool):
+    urdf, task, ref, _ = port_interface.mpc_files(ASSETS / robot, "centroidal")
+    probe = load_task(task, "centroidal", 1, 1)
+    layout = layout_cls(n_joints=len(mpc_joint_names_(urdf,
+                                                      probe.model_settings.fixed_joint_names)))
+    cfg = load_task(task, "centroidal", layout.state_dim, layout.input_dim)
+    model = model_cls(robot=build_robot(urdf, cfg), layout=layout,
+                      contact_frames=tuple(cfg.model_settings.contact_names), srbm=srbm,
+                      nominal_joint_angles=tuple(
+                          load_ref(ref, layout.n_joints).default_joint_state.tolist()))
+    return cfg, model, ocp_cls(model=model, cfg=cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_centroidal(robot: str, srbm: bool = False):
+    """(cfg, model, ocp) of the JAX centroidal formulation for an asset
+    robot, built as `build_centroidal_mpc` builds them."""
+    from wb_humanoid_mpc_tpu.core.config import load_reference_config
+    from wb_humanoid_mpc_tpu.models.centroidal_model import CentroidalModel
+    from wb_humanoid_mpc_tpu.models.layout import CentroidalLayout
+    from wb_humanoid_mpc_tpu.ocp.centroidal_ocp import CentroidalOcp
+
+    return _centroidal_setup(load_task_config, CentroidalLayout, build_robot_model,
+                             mpc_joint_names, load_reference_config, CentroidalModel,
+                             CentroidalOcp, robot, srbm)
+
+
+@functools.lru_cache(maxsize=None)
+def port_centroidal(robot: str, srbm: bool = False):
+    """(cfg, model, ocp) of the port's centroidal formulation."""
+    from wb_humanoid_mpc_tpu_torch.core import config as pc
+    from wb_humanoid_mpc_tpu_torch.models.centroidal_model import CentroidalModel
+    from wb_humanoid_mpc_tpu_torch.models.layout import CentroidalLayout
+    from wb_humanoid_mpc_tpu_torch.models.robot import factory as pf
+    from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import CentroidalOcp
+
+    return _centroidal_setup(pc.load_task_config, CentroidalLayout, pf.build_robot_model,
+                             pf.mpc_joint_names, pc.load_reference_config, CentroidalModel,
+                             CentroidalOcp, robot, srbm)
+
+
 def to_numpy(tree):
     """Nested tuples/lists/NamedTuples of jax arrays or torch tensors -> numpy."""
     if isinstance(tree, torch.Tensor):
@@ -191,3 +233,137 @@ def check_variant(jax_refs: dict, fields: dict, setup: str, dtype: str, N: int) 
     sol = solve(0.0, pb.x0, pb.traj, pb.params, pb.lam)
     assert sol.iterations == fields.get("sqp_iterations", 1)
     assert_solution_close(sol, jax_refs[(setup, dtype)], dtype, f"{fields} {setup} {dtype}")
+
+
+# ---- the closed loop (tests/test_torch_closed_loop_*.py) ----
+
+LOOP_TOL = 1e-8          # x max(1, max|ref|), f64, per tick
+LOOP_KW = dict(n_nodes=8, horizon=0.32)   # toy_biped, dt 0.04
+TROT_AT = 0.1
+
+
+def build_pair(formulation: str):
+    """(JAX interface, port interface in f64 on the CPU) of `build_*_mpc` on
+    toy_biped's committed files."""
+    from wb_humanoid_mpc_tpu import interface as jax_interface
+
+    files = port_interface.mpc_files(ASSETS / "toy_biped", formulation)
+    jb = {"centroidal": jax_interface.build_centroidal_mpc,
+          "wb": jax_interface.build_wb_mpc}[formulation]
+    pb = {"centroidal": port_interface.build_centroidal_mpc,
+          "wb": port_interface.build_wb_mpc}[formulation]
+    return jb(*files, **LOOP_KW), pb(*files, **LOOP_KW, device="cpu", dtype=torch.float64)
+
+
+def run_loop(mpc, run_dummy_sim, trot: bool, duration: float = 0.4):
+    """The dummy-sim loop at 50/25 Hz from the initial state, zero command;
+    with `trot`, `request_gait("trot")` at TROT_AT."""
+    mpc.runtime.reset()
+    fired = []
+
+    def command_fn(t):
+        if trot and t >= TROT_AT and not fired:
+            mpc.motion_manager.request_gait("trot")
+            fired.append(t)
+        return np.zeros(4)
+
+    return run_dummy_sim(mpc.runtime, mpc.initial_state, duration, 50.0, 25.0,
+                         command_fn=command_fn, flow=mpc.model.flow_map)
+
+
+def assert_loop_close(got, ref, what: str, tol: float = LOOP_TOL) -> None:
+    """Two DummySimLogs tick by tick: states, inputs and solve stats at
+    tol x max(1, max|ref|), contact flags and step sizes equal."""
+    assert got.states.shape == ref.states.shape, what
+    np.testing.assert_array_equal(got.contact_flags, ref.contact_flags, err_msg=what)
+    pairs = [("states", got.states, ref.states), ("inputs", got.inputs, ref.inputs)]
+    for name in ("cost", "g_norm"):
+        pairs.append((name, np.array([getattr(s, name) for s in got.solve_stats]),
+                      np.array([getattr(s, name) for s in ref.solve_stats])))
+    for name, a, b in pairs:
+        limit = tol * max(1.0, float(np.abs(b).max()))
+        err = np.abs(a - b).reshape(len(a), -1).max(axis=1)
+        assert err.max() <= limit, (f"{what} {name}: tick {int(err.argmax())} off by "
+                                    f"{err.max():.3e} > {limit:.3e}")
+    assert [s.step_size for s in got.solve_stats] == [float(s.step_size)
+                                                      for s in ref.solve_stats], what
+
+
+def forced_recovery(mpc, g_last: float):
+    """Two solves at t = 0 and 0.04 with the previous solve's g_norm set to
+    `g_last` before the second: 2 > warm_reset_g takes the soft branch
+    (recovery solver, shifted warm start), 20 > 10 warm_reset_g the hard one
+    (recovery solver from the WeightCompInitializer trajectory). Returns
+    (stats, policy xs, policy us, warm resets) of the second solve."""
+    rt = mpc.runtime
+    rt.reset()
+    x0 = np.asarray(mpc.initial_state, dtype=float)
+    rt.advance(0.0, x0, np.zeros(4))
+    rt._last_g = g_last
+    stats = rt.advance(0.04, x0, np.zeros(4))
+    return stats, np.asarray(rt.policy.xs), np.asarray(rt.policy.us), rt.n_warm_resets
+
+
+LOOP_CASES = ["stance", "trot", "soft_recovery", "hard_recovery", "f32_tick"]
+
+
+class LoopPair:
+    """One formulation's JAX and port interfaces on toy_biped, with the JAX
+    results of each case computed once, on first use."""
+
+    def __init__(self, formulation: str):
+        from wb_humanoid_mpc_tpu.sim.dummy import run_dummy_sim as jax_run
+
+        self.formulation = formulation
+        self.jax, self.port = build_pair(formulation)
+        self._jax_run = jax_run
+        self._ref = {}
+
+    def ref(self, case: str):
+        if case not in self._ref:
+            if case in ("stance", "trot"):
+                self._ref[case] = run_loop(self.jax, self._jax_run, case == "trot")
+            elif case == "f32_tick":
+                self._ref[case] = forced_recovery(self.jax, 0.0)
+            else:
+                self._ref[case] = forced_recovery(
+                    self.jax, 2.0 if case == "soft_recovery" else 20.0)
+        return self._ref[case]
+
+
+def check_loop_case(pair: LoopPair, case: str) -> None:
+    from wb_humanoid_mpc_tpu_torch.interface import build_centroidal_mpc, build_wb_mpc
+    from wb_humanoid_mpc_tpu_torch.sim.dummy import run_dummy_sim
+
+    ref = pair.ref(case)
+    what = f"{pair.formulation} {case}"
+    if case in ("stance", "trot"):
+        got = run_loop(pair.port, run_dummy_sim, case == "trot")
+        assert_loop_close(got, ref, what)
+        assert all(s.iterations == 2 for s in got.solve_stats if not s.recovery)
+        if case == "trot":
+            # the last solve's horizon holds single-support nodes in both
+            flags = [pair.port.runtime.policy.contact_flags, pair.jax.runtime.policy.contact_flags]
+            np.testing.assert_array_equal(*flags)
+            assert (flags[0].sum(axis=1) < 2).any(), "no single support after the trot"
+        return
+    if case == "f32_tick":
+        # the port in float32 against JAX's float64 solve of the same tick
+        build = build_centroidal_mpc if pair.formulation == "centroidal" else build_wb_mpc
+        mpc = build(*port_interface.mpc_files(ASSETS / "toy_biped", pair.formulation),
+                    **LOOP_KW, device="cpu", dtype=torch.float32)
+        got = forced_recovery(mpc, 0.0)
+        tol = SOLVE_TOL["f32"]
+    else:
+        got = forced_recovery(pair.port, 2.0 if case == "soft_recovery" else 20.0)
+        tol = LOOP_TOL
+        assert got[0].recovery and got[0].iterations == 12, what
+        assert got[3] == ref[3] == (1 if case == "hard_recovery" else 0), what
+    (gs, gxs, gus, _), (rs, rxs, rus, _) = got, ref
+    for name, a, b in (("xs", gxs, rxs), ("us", gus, rus),
+                       ("cost", gs.cost, float(rs.cost)), ("g_norm", gs.g_norm, float(rs.g_norm))):
+        b = np.asarray(b, np.float64)
+        limit = tol * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(np.asarray(a, np.float64) - b).max())
+        assert err <= limit, f"{what} {name}: {err:.3e} > {limit:.3e}"
+    assert gs.step_size == float(rs.step_size), what

@@ -9,7 +9,9 @@ AL path's unprojected LQ from real solver data; for K3 the cluster
 geometry: the kernel's own plan, the f64 (28, 58, 35) ring of 3 slots for
 4 stages a CTA, N below the cluster of 8 (one stage a rank), a forced ring
 in f32, the refusal of ranks without stages, inputs off 16-byte alignment,
-batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224. Needs an
+batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224. The
+closed loop of each formulation (`build_*_mpc` + `run_dummy_sim`, humanoid23
+at N = 6) runs through the kernels and against its plain twin. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -258,3 +260,40 @@ def test_riccati_kernel_on_the_al_path_lq(card):
     got = riccati.riccati_rollout_cuda(*args, reg=cfg.reg_num)
     _close(got, riccati.riccati_rollout_plain(*args, reg=cfg.reg_num), TOL[torch.float32],
            "K1 AL path")
+
+
+@pytest.mark.parametrize("formulation", ["wb", "centroidal"])
+def test_closed_loop_kernels_match_plain(card, formulation):
+    """`build_*_mpc` + `run_dummy_sim` on humanoid23 at N = 6, f32, 0.2 s of
+    stance at 50/25 Hz: the kernel run against the same loop on the plain
+    versions (per tick, 2e-3 x max(1, max|ref|), the same steps); K1
+    launched once per SQP iteration; K2 (whole-body only) 6 to 9 times."""
+    from wb_humanoid_mpc_tpu_torch.interface import (
+        build_centroidal_mpc,
+        build_wb_mpc,
+        mpc_files,
+    )
+    from wb_humanoid_mpc_tpu_torch.sim.dummy import run_dummy_sim
+
+    build = build_wb_mpc if formulation == "wb" else build_centroidal_mpc
+    files = mpc_files(ASSETS / "humanoid23", formulation)
+    logs, counts = [], None
+    for overrides in ({}, dict(rollout_backend="plain", flow_backend="plain")):
+        mpc = build(*files, n_nodes=6, solver_overrides=overrides, device=card)
+        riccati.reset_launches()
+        fkvel.reset_launches()
+        logs.append(run_dummy_sim(mpc.runtime, mpc.initial_state, 0.2, 50.0, 25.0,
+                                  flow=mpc.model.flow_map))
+        if counts is None:
+            counts = (riccati.LAUNCHES, fkvel.LAUNCHES)
+    got, ref = logs
+    assert np.isfinite(got.states).all()
+    for a, b in ((got.states, ref.states), (got.inputs, ref.inputs)):
+        assert np.abs(a - b).max() <= 2e-3 * max(1.0, np.abs(b).max())
+    assert [s.step_size for s in got.solve_stats] == [s.step_size for s in ref.solve_stats]
+    n_iter = sum(s.iterations for s in got.solve_stats)
+    assert counts[0] == n_iter
+    if formulation == "wb":
+        assert 6 * n_iter <= counts[1] <= 9 * n_iter
+    else:
+        assert counts[1] == 0

@@ -20,6 +20,8 @@ import torch
 
 import wb_humanoid_mpc_tpu_torch
 from wb_humanoid_mpc_tpu_torch import convert, interface
+from wb_humanoid_mpc_tpu_torch.mpc.runtime import MpcRuntime
+from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import NodeParams
 from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati, rollout
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import (
@@ -44,6 +46,13 @@ def test_port_imports_no_jax():
     no `wb_humanoid_mpc_tpu.*` module may be loaded, and no kernel built."""
     mods = _port_modules()
     assert "wb_humanoid_mpc_tpu_torch.solver.sqp" in mods and len(mods) > 20
+    # the closed loop: reference pipeline, centroidal formulation, runtime, sim
+    assert {"wb_humanoid_mpc_tpu_torch.refs.gait", "wb_humanoid_mpc_tpu_torch.refs.swing",
+            "wb_humanoid_mpc_tpu_torch.refs.targets", "wb_humanoid_mpc_tpu_torch.refs.manager",
+            "wb_humanoid_mpc_tpu_torch.models.centroidal_model",
+            "wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp", "wb_humanoid_mpc_tpu_torch.mpc.gains",
+            "wb_humanoid_mpc_tpu_torch.mpc.runtime", "wb_humanoid_mpc_tpu_torch.sim.dummy",
+            } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from wb_humanoid_mpc_tpu_torch.ops import _lib\n"
@@ -80,6 +89,12 @@ ENTRY_POINTS = {
         {f: getattr(pb.params, f).numpy() for f in pb.params._fields}),
     "trajectory_from_numpy": lambda pb: convert.trajectory_from_numpy(
         pb.traj.xs.numpy(), pb.traj.us.numpy()),
+    "centroidal_node_params_from_numpy": lambda pb: convert.centroidal_node_params_from_numpy(
+        {f: np.zeros((2, 3)) for f in NodeParams._fields}),
+    "build_wb_mpc": lambda pb: interface.build_wb_mpc(*interface.mpc_files(TOY, "wb"), n_nodes=3),
+    "build_centroidal_mpc": lambda pb: interface.build_centroidal_mpc(
+        *interface.mpc_files(TOY, "centroidal"), n_nodes=3),
+    "MpcRuntime": lambda pb: MpcRuntime(None, None, None, 3, 0.1, 14, np.zeros(24)),
 }
 
 
@@ -88,7 +103,11 @@ def test_entry_point_defaults_to_the_card(entry, toy_problem, no_card):
     fn = {"build_wb_problem": interface.build_wb_problem, "make_sqp_solver": make_sqp_solver,
           "make_staged_sqp_solver": make_staged_sqp_solver, "make_ddp_solver": make_ddp_solver,
           "node_params_from_numpy": convert.node_params_from_numpy,
-          "trajectory_from_numpy": convert.trajectory_from_numpy}[entry]
+          "trajectory_from_numpy": convert.trajectory_from_numpy,
+          "centroidal_node_params_from_numpy": convert.centroidal_node_params_from_numpy,
+          "build_wb_mpc": interface.build_wb_mpc,
+          "build_centroidal_mpc": interface.build_centroidal_mpc,
+          "MpcRuntime": MpcRuntime}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](toy_problem)

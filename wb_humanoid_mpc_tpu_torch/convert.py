@@ -2,8 +2,9 @@
 
 The port's counterpart of weights is the robot model and the problem data.
 These builders take plain numpy arrays (for example the fields of the JAX
-package's `RobotModel`, `WBNodeParams` and `Trajectory`, which are numpy or
-convert to it), so a test can feed both packages the same data.
+package's `RobotModel`, `WBNodeParams`, centroidal `NodeParams` and
+`Trajectory`, which are numpy or convert to it), so a test can feed both
+packages the same data.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from wb_humanoid_mpc_tpu_torch.models.robot.urdf import Frame, RobotModel
+from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import NodeParams
 from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams
 from wb_humanoid_mpc_tpu_torch.solver.riccati import RiccatiSolution
 from wb_humanoid_mpc_tpu_torch.solver.transcription import LQApprox, Trajectory
@@ -47,12 +49,23 @@ def robot_model_from_arrays(arrays: Mapping) -> RobotModel:
         **kw)
 
 
+def _params(cls, params: Mapping, device, dtype):
+    dev = resolve_device(device)
+    return cls(*(torch.as_tensor(np.asarray(params[f], dtype=np.float64), dtype=dtype,
+                                 device=dev) for f in cls._fields))
+
+
 def node_params_from_numpy(params: Mapping, *, device="cuda",
                            dtype=torch.float32) -> WBNodeParams:
     """WBNodeParams from numpy arrays keyed by field name (leading node dim)."""
-    dev = resolve_device(device)
-    return WBNodeParams(*(torch.as_tensor(np.asarray(params[f], dtype=np.float64), dtype=dtype,
-                                          device=dev) for f in WBNodeParams._fields))
+    return _params(WBNodeParams, params, device, dtype)
+
+
+def centroidal_node_params_from_numpy(params: Mapping, *, device="cuda",
+                                      dtype=torch.float32) -> NodeParams:
+    """Centroidal `NodeParams` from numpy arrays keyed by field name (leading
+    node dim; `torso_ref` [..., n_ts_links, 18])."""
+    return _params(NodeParams, params, device, dtype)
 
 
 def trajectory_from_numpy(xs, us, *, device="cuda", dtype=torch.float32) -> Trajectory:

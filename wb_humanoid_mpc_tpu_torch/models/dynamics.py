@@ -10,14 +10,28 @@ that the whole-body flow map and OCP reach:
   (`nle_newton_euler`);
 - the 6x6 base block solved by a statically unrolled Cholesky
   (`_spd_solve_unrolled`): no `torch.linalg` inside code that the LQ
-  linearization differentiates with `torch.func`.
+  linearization differentiates with `torch.func`;
+- for the centroidal formulation: the COM (`com_position`), the centroidal
+  momentum matrix A_G(q) (`centroidal_momentum_matrix`) and h_G / m
+  (`normalized_centroidal_momentum`); and the full-matrix helpers
+  `mass_matrix`, `mass_and_nle`, `nonlinear_effects` and
+  `generalized_accelerations`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from wb_humanoid_mpc_tpu_torch.models.kinematics import FK, VelBias, robot_tensors
+from typing import NamedTuple
+
+from wb_humanoid_mpc_tpu_torch.models.kinematics import (
+    FK,
+    VelBias,
+    all_body_jacobians,
+    forward_kinematics,
+    forward_kinematics_vel,
+    robot_tensors,
+)
 from wb_humanoid_mpc_tpu_torch.models.robot.urdf import RobotModel
 from wb_humanoid_mpc_tpu_torch.utils.rotations import cross, skew
 
@@ -42,6 +56,31 @@ def spatial_inertia_world(model: RobotModel, fk: FK) -> torch.Tensor:
 def mass_matrix_from(model: RobotModel, fk: FK, J: torch.Tensor) -> torch.Tensor:
     I_w = spatial_inertia_world(model, fk)
     return torch.einsum("...bri,...brs,...bsj->...ij", J, I_w, J)
+
+
+def mass_matrix(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """[..., nq, nq] generalized mass matrix (CRBA equivalent)."""
+    fk = forward_kinematics(model, q)
+    return mass_matrix_from(model, fk, all_body_jacobians(model, fk))
+
+
+def com_from_fk(model: RobotModel, fk: FK) -> torch.Tensor:
+    """[..., 3] world COM from a kinematics pass."""
+    rt = robot_tensors(model, fk.R.device, fk.R.dtype)
+    com_w = fk.p + torch.einsum("...bij,bj->...bi", fk.R, rt.com)
+    return (rt.mass[:, None] * com_w).sum(-2) / rt.mass.sum()
+
+
+def com_position(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """[..., 3] world COM at q."""
+    return com_from_fk(model, forward_kinematics(model, q))
+
+
+class MassNle(NamedTuple):
+    M: torch.Tensor
+    nle: torch.Tensor
+    fk: FK
+    J: torch.Tensor  # [..., n_b, 6, nq] body Jacobians
 
 
 def bias_wrenches(model: RobotModel, fk: FK, vb: VelBias) -> torch.Tensor:
@@ -77,6 +116,47 @@ def base_rows_mass_nle(model: RobotModel, fk: FK, vb: VelBias, J: torch.Tensor
     M6 = torch.einsum("...bri,...brs,...bsj->...ij", Jb, I_w, J)
     nle6 = torch.einsum("...bri,...br->...i", Jb, bias_wrenches(model, fk, vb))
     return M6, nle6
+
+
+def mass_and_nle(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> MassNle:
+    """(M, nle, fk, J) from one level-parallel kinematics pass: M by the
+    world-Jacobian contraction, nle by the Newton-Euler balance."""
+    fk, vb = forward_kinematics_vel(model, q, v)
+    J = all_body_jacobians(model, fk)
+    return MassNle(mass_matrix_from(model, fk, J), nle_newton_euler(model, fk, vb, J), fk, J)
+
+
+def nonlinear_effects(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """nle(q, v) = C(q,v) v + g(q)."""
+    return mass_and_nle(model, q, v).nle
+
+
+def centroidal_momentum_matrix_from(model: RobotModel, fk: FK) -> torch.Tensor:
+    """A_G from a kinematics pass: [..., 6, nq], h_G = A_G v with
+    h_G = [linear; angular about the COM]."""
+    J = all_body_jacobians(model, fk)
+    I_w = spatial_inertia_world(model, fk)
+    # momentum of each body about its own origin -> about the world origin:
+    # p_lin unchanged; L_O = L_b + p_b x p_lin
+    A_b = I_w @ J                                          # [..., n_b, 6, nq]
+    lin = A_b[..., 0:3, :]
+    ang_O = A_b[..., 3:6, :] + skew(fk.p) @ lin
+    lin = lin.sum(-3)
+    ang_O = ang_O.sum(-3)
+    # from the world origin to the COM: L_G = L_O - p_com x p_lin
+    ang_G = ang_O - skew(com_from_fk(model, fk)) @ lin
+    return torch.cat([lin, ang_G], dim=-2)
+
+
+def centroidal_momentum_matrix(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """A_G(q): [..., 6, nq]."""
+    return centroidal_momentum_matrix_from(model, forward_kinematics(model, q))
+
+
+def normalized_centroidal_momentum(model: RobotModel, q: torch.Tensor,
+                                   v: torch.Tensor) -> torch.Tensor:
+    """h_G / total_mass, the centroidal state's momentum."""
+    return (centroidal_momentum_matrix(model, q) @ v[..., None])[..., 0] / model.total_mass
 
 
 def _spd_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -136,3 +216,11 @@ def joint_torques(model: RobotModel, M, nle, qdd_joints, J_contacts, wrenches):
     a_base = base_acceleration(M, nle, qdd_joints, tau_ext)
     qdd = torch.cat([a_base, qdd_joints], dim=-1)
     return (M[..., 6:, :] @ qdd[..., None])[..., 0] + nle[..., 6:] - tau_ext[..., 6:]
+
+
+def generalized_accelerations(model: RobotModel, M, nle, qdd_joints, J_contacts, wrenches):
+    """[a_base(6); qdd_joints] from the full M, nle given joint accelerations
+    and contact wrenches (J_contacts [..., n_c, 6, nq], wrenches [..., n_c, 6])."""
+    tau_ext = torch.einsum("...crn,...cr->...n", J_contacts, wrenches)
+    a_base = base_acceleration(M, nle, qdd_joints, tau_ext)
+    return torch.cat([a_base, qdd_joints], dim=-1)

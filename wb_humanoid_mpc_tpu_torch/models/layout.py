@@ -1,11 +1,17 @@
-"""Whole-body state/input layout: index arithmetic on tensors.
+"""State/input layouts of both formulations: index arithmetic on tensors.
 
-PyTorch counterpart of `WBLayout` in `wb_humanoid_mpc_tpu/models/layout.py`
-(the centroidal layout waits for the centroidal formulation). Every accessor
-is a slice of the last dim, so it works on batched tensors.
+PyTorch counterpart of `wb_humanoid_mpc_tpu/models/layout.py`. Every
+accessor is a slice of the last dim, so it works on batched tensors. The JAX
+classes' `with_*` setters (`.at[].set`) have no caller in either package and
+are not ported.
 
-    state  x = [q_base(6), q_joints(n), v_base(6), v_joints(n)]   (12+2n)
-    input  u = [W_l(6), W_r(6), qdd_joints(n)]                    (12+n)
+Centroidal:
+    state  x = [h_com(6, normalized momentum), q_base(6), q_joints(n)]   (12+n)
+    input  u = [W_l(6), W_r(6), qd_joints(n)]                            (12+n)
+
+Whole-body:
+    state  x = [q_base(6), q_joints(n), v_base(6), v_joints(n)]          (12+2n)
+    input  u = [W_l(6), W_r(6), qdd_joints(n)]                           (12+n)
 
 q_base = [p_xyz(3), theta_zyx(3)], v_base = [world linear vel, euler rates].
 Wrenches are world-frame [force(3), torque(3)] per contact.
@@ -22,7 +28,9 @@ WRENCH_DIM = 6
 
 
 @dataclasses.dataclass(frozen=True)
-class WBLayout:
+class Layout:
+    """Dims and input slices shared by both formulations."""
+
     n_joints: int
 
     @property
@@ -31,11 +39,7 @@ class WBLayout:
 
     @property
     def state_dim(self) -> int:
-        return 12 + 2 * self.n_joints
-
-    @property
-    def nq(self) -> int:
-        return 6 + self.n_joints
+        raise NotImplementedError
 
     # --- input ---
     def contact_wrench(self, u, contact: int):
@@ -52,10 +56,53 @@ class WBLayout:
         return u[..., : 6 * N_CONTACTS].reshape(*u.shape[:-1], N_CONTACTS, 6)
 
     def joint_input(self, u):
-        """Joint accelerations."""
+        """Joint velocities (centroidal) / accelerations (whole-body)."""
         return u[..., 6 * N_CONTACTS:]
 
-    # --- state ---
+
+@dataclasses.dataclass(frozen=True)
+class CentroidalLayout(Layout):
+    """x = [h(6), q_base(6), q_j(n)]"""
+
+    @property
+    def state_dim(self) -> int:
+        return 12 + self.n_joints
+
+    def momentum(self, x):
+        return x[..., 0:6]
+
+    def base_pose(self, x):
+        return x[..., 6:12]
+
+    def base_position(self, x):
+        return x[..., 6:9]
+
+    def base_euler_zyx(self, x):
+        return x[..., 9:12]
+
+    def joint_angles(self, x):
+        return x[..., 12:]
+
+    def generalized_coordinates(self, x):
+        """q = [p, theta, q_j] for the rigid-body engine."""
+        return x[..., 6:]
+
+    def assemble(self, h, base_pose, qj):
+        return torch.cat([h, base_pose, qj], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class WBLayout(Layout):
+    """x = [q_base(6), q_j(n), v_base(6), v_j(n)]"""
+
+    @property
+    def state_dim(self) -> int:
+        return 12 + 2 * self.n_joints
+
+    @property
+    def nq(self) -> int:
+        return 6 + self.n_joints
+
     def base_pose(self, x):
         return x[..., 0:6]
 

@@ -32,7 +32,11 @@ from wb_humanoid_mpc_tpu_torch.models import dynamics as dyn
 from wb_humanoid_mpc_tpu_torch.models import kinematics as kin
 from wb_humanoid_mpc_tpu_torch.models.wb_model import WholeBodyModel
 from wb_humanoid_mpc_tpu_torch.ocp.base import BarrierParams, NodeTerms, masked_barrier_value
-from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import FRICTION_REGULARIZATION, _tilt_error
+from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import (
+    FRICTION_REGULARIZATION,
+    _tilt_error,
+    barrier_params,
+)
 from wb_humanoid_mpc_tpu_torch.ocp.params import weight_comp_input
 
 
@@ -64,7 +68,8 @@ class _Consts(NamedTuple):
 class WholeBodyOcp:
     model: WholeBodyModel
     cfg: TaskConfig
-    # the constants above as tensors, one set per (device, dtype)
+    # the constants above as tensors, one set per (device, dtype); cleared
+    # when a gain update changes the config (`interface.py`)
     _cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
@@ -103,17 +108,8 @@ class WholeBodyOcp:
 
     def barrier_params(self, device, dtype) -> BarrierParams:
         """Penalty families: cone + moment -> relaxed log barrier; joint limits
-        + collision -> one-sided hinge."""
-        c = self.cfg
-        n_j = self.model.layout.n_joints
-        vals = (
-            [c.contacts.friction_cone_barrier.mu] * 2 + [c.contacts.contact_moment_barrier.mu] * 8,
-            [c.contacts.friction_cone_barrier.delta] * 2
-            + [c.contacts.contact_moment_barrier.delta] * 8,
-            [c.joint_limits_barrier.mu] * (2 * n_j) + [c.collision.barrier.mu] * 16,
-            [c.joint_limits_barrier.delta] * (2 * n_j) + [c.collision.barrier.delta] * 16,
-        )
-        return BarrierParams(*(torch.tensor(v, dtype=dtype, device=device) for v in vals))
+        + collision -> one-sided hinge (the centroidal OCP's rows)."""
+        return barrier_params(self.cfg, self.model.layout.n_joints, device, dtype)
 
     def node_terms(self, t, x, u, p: WBNodeParams) -> NodeTerms:
         return self.fused_node(t, x, u, p)[0]
