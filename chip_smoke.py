@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `wb_humanoid_mpc_tpu_torch/csrc/`, holds
-each against its plain PyTorch version on the card, then drives three paths,
+each against its plain PyTorch version on the card, then drives these paths,
 all at N = 28 on the 29-DoF `humanoid23` model (nx 58, nu 35, 14 equality
 rows), the stance setup of `bench.py`, in float32:
 
@@ -16,7 +16,15 @@ rows), the stance setup of `bench.py`, in float32:
   `forward_pass` and K1's fused solve;
 - every other solver configuration (AL + merit, parallel Riccati, midpoint
   and exact sensitivities, DDP, the staged solver), a few warm-started
-  solves each, against the same configuration on the plain versions.
+  solves each, against the same configuration on the plain versions;
+- the closed loop of both formulations (`build_*_mpc` + the dummy sim);
+- the MRT host runtime of both formulations: `MrtPipeline`'s solver thread
+  on the card beside a 500 Hz control loop (replay plant, native seqlock,
+  the MRT controller on its own CUDA stream, native `control_tick`);
+- the batched solve: B = 8 against 8 unbatched solves and against its plain
+  run, a sweep of B up to the largest that fits (at most 256), K1 at a
+  leading batch of 8, 64 and that B, and K2 at the sweep's row counts
+  (B x 28 and 2 B x 28) at B = 64 and that B.
 
 Each path checks that its kernels were launched as the configuration
 implies, that the result is finite and that it agrees with the plain
@@ -169,6 +177,26 @@ def scaled_err(a, b, tol: float, what: str) -> float:
             raise AssertionError(f"{what}: max |got - ref| = {err:.3e} beyond {limit:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def k1_solver_err(got, ref, what: str) -> tuple[float, float]:
+    """(max |K1 - plain|, the largest ratio of |K1 - plain| to its limit)
+    over K1's outputs on a solver's LQ data, whose gains reach ~1e2: the
+    limit is K1_TOL's atol x max(1, max|ref|) of each output + rtol |ref|
+    (tests/test_torch_cuda.py's convention for K1 on the AL path's LQ).
+    Raises if an output is not finite or a ratio exceeds 1."""
+    import torch
+
+    err, ratio = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what} output {i}: not finite")
+        diff = (a - b).abs()
+        limit = K1_TOL["atol"] * max(1.0, float(b.abs().max())) + K1_TOL["rtol"] * b.abs()
+        err, ratio = max(err, float(diff.max())), max(ratio, float((diff / limit).max()))
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: max |K1 - plain| {err:.3e}, {ratio:.3f} of its limit")
+    return err, ratio
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -345,6 +373,439 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
         result["vs_plain_max_err"] = max(errs)
         out[form] = result
     return out
+
+
+def _capture_last_launch(module, name: str, store: dict, key, counts: dict | None = None):
+    """Wrap `module.name` (a kernel wrapper, looked up at call time by its
+    dispatcher) so that it keeps the inputs and outputs of its last launch
+    under `key`, or under key(*args) when `key` is a function, and counts the
+    launches under that key in `counts`; returns a function that restores
+    the wrapper."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        k = key(*args) if callable(key) else key
+        store[k] = (args, kwargs, out)
+        if counts is not None:
+            counts[k] = counts.get(k, 0) + 1
+        return out
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
+    """The MRT host runtime at full width: per formulation, a `MrtPipeline`
+    whose solver thread solves on the card while a 500 Hz control loop in
+    this thread, each tick, pushes an observation from a replay plant (the
+    newest policy's state at t + dt), reads the policy through the native
+    seqlock and computes torques with the formulation's controller (on its
+    own CUDA stream) and with the native `control_tick`. The control clock
+    is the wall clock. Whole-body for at least 5 s and 5 policies used by the
+    control loop, centroidal for at least 2 s and 3. Before the loop, one
+    solve of the solver thread from a fixed observation holds its K1 against
+    the plain version; after it, the thread's last K1 and K2 launches are
+    launched again (bit-identical) and held against plain."""
+    from wb_humanoid_mpc_tpu_torch import native
+    from wb_humanoid_mpc_tpu_torch.core.config import load_task_config
+    from wb_humanoid_mpc_tpu_torch.interface import (
+        ASSETS,
+        build_centroidal_mpc,
+        build_wb_mpc,
+        mpc_files,
+    )
+    from wb_humanoid_mpc_tpu_torch.mpc.async_runtime import MrtPipeline, PolicyObserver
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import (
+        CentroidalMrtController,
+        WBMrtController,
+    )
+
+    period = 0.002
+    out = {}
+    for form, build, ctrl_cls, seconds, min_solves in (
+            ("wb", build_wb_mpc, WBMrtController, 5.0, 5),
+            ("centroidal", build_centroidal_mpc, CentroidalMrtController, 2.0, 3)):
+        files = mpc_files(ASSETS / "humanoid23", form)
+        kw = dict(n_nodes=N_NODES)
+        if form == "wb":
+            kw["dt_override"] = load_task_config(files[1], "wb", 1, 1).sqp.dt
+        mpc = build(*files, **kw, device="cuda")
+        lay, n = mpc.model.layout, mpc.model.layout.n_joints
+        x0 = np.asarray(mpc.initial_state, dtype=float)
+        rt = mpc.runtime
+        horizon = mpc.n_nodes * mpc.dt
+        ctrl = ctrl_cls(mpc.model, device="cuda")
+        # state rows of the joint angles; joint velocity references from the
+        # state (whole-body) or from the input (centroidal)
+        if form == "wb":
+            q_off, qd_src, qd_off = 6, 0, 12 + n
+        else:
+            q_off, qd_src, qd_off = 12, 1, 12
+        # warm: the first solve and controller call of a process are slow;
+        # then the controller alone, with no solver thread beside it
+        rt.advance(0.0, x0, np.zeros(4))
+        warm_pol = rt.policy
+        rt.reset()
+        ctrl.compute(0.0, x0, None)
+        alone_ms = []
+        for i in range(50):
+            c0 = time.perf_counter()
+            ctrl.compute(0.002 * i, x0, warm_pol)
+            alone_ms.append((time.perf_counter() - c0) * 1e3)
+        torch.cuda.synchronize()
+
+        # the solver thread's K1 on a reproducible input: the one solve of a
+        # fresh pipeline from the fixed observation (t = 0, x0)
+        probe_cap = {}
+        restore = _capture_last_launch(riccati, "riccati_rollout_cuda", probe_cap, "K1")
+        probe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
+        probe.push_observation(0.0, x0, np.zeros(4))
+        probe.start()
+        try:
+            t_probe = time.perf_counter()
+            while probe.solve_count < 1 and not probe.failed:
+                if time.perf_counter() - t_probe > 120.0:
+                    raise AssertionError(f"mrt {form}: no solve from the fixed observation in "
+                                         f"120 s")
+                time.sleep(0.01)
+        finally:
+            probe.stop(timeout=120.0)
+            restore()
+        if probe.failed:
+            raise AssertionError(f"mrt {form}: the solver failed ({probe.error!r})")
+        rt.reset()
+        args, kwargs, got = probe_cap["K1"]
+        torch.cuda.synchronize()
+        e1_fixed, r1_fixed = k1_solver_err(
+            got, riccati.riccati_rollout_plain(*args, **kwargs),
+            f"mrt {form} K1 (solver thread, fixed observation)")
+
+        record = _recording(rt, riccati, fkvel)
+        captured = {}
+        restore = [_capture_last_launch(riccati, "riccati_rollout_cuda", captured, "K1"),
+                   _capture_last_launch(fkvel, "fkvel_cuda", captured, "K2")]
+        pipe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
+        observer = PolicyObserver(pipe)
+        starts, work, ctrl_ms, ages, past, tau_err = [], [], [], [], [], 0.0
+        policies_seen = set()
+        x = x0.copy()
+        for mod in (riccati, fkvel):
+            mod.reset_launches()
+        pipe.start()
+        try:
+            t_start = time.perf_counter()
+            k = 0
+            while True:
+                wait = t_start + k * period - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                s0 = time.perf_counter()
+                starts.append(s0)
+                t = s0 - t_start   # the control clock is the wall clock
+                pipe.push_observation(t, x, np.zeros(4))
+                pol = pipe.get_policy()
+                c0 = time.perf_counter()
+                action = ctrl.compute(t, x, pol)
+                ctrl_ms.append((time.perf_counter() - c0) * 1e3)
+                q = x[q_off:q_off + n]
+                if pol is None:
+                    qd = np.zeros(n)
+                else:
+                    qd = (x[qd_off:qd_off + n] if qd_src == 0
+                          else lay.joint_input(pol.evaluate(t)[1]))
+                tau = action.total_torque(q, qd)
+                if not np.isfinite(tau).all():
+                    raise AssertionError(f"mrt {form}: non-finite torque at tick {k}")
+                if pol is not None:
+                    policies_seen.add(pol.t0)
+                    tau_n = native.control_tick(
+                        pol.xs, pol.us, pol.t0, pol.dt, t + ctrl.lead, q_off, qd_src, qd_off,
+                        np.arange(n), action.ff_effort, ctrl.KP, ctrl.KD, ctrl.KP_FIXED,
+                        ctrl.KD_FIXED, q, qd)
+                    tau_err = max(tau_err, float(np.abs(tau_n - tau).max()
+                                                 / max(1.0, float(np.abs(tau).max()))))
+                    ages.append(t - pol.t0)
+                    past.append(t + ctrl.lead - pol.t0 > horizon)
+                    x = np.asarray(pol.evaluate(t + period)[0], dtype=float)   # replay plant
+                work.append(time.perf_counter() - s0)
+                k += 1
+                elapsed = time.perf_counter() - t_start
+                if pipe.failed or (elapsed >= seconds and len(policies_seen) >= min_solves):
+                    break
+                if elapsed > 120.0:
+                    raise AssertionError(f"mrt {form}: {len(policies_seen)} policies in 120 s")
+        finally:
+            pipe.stop(timeout=120.0)
+            for r in restore:
+                r()
+            del rt.advance   # the recording wrapper
+        torch.cuda.synchronize()
+        launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
+        wall = time.perf_counter() - t_start
+        if pipe._thread is not None:
+            raise AssertionError(f"mrt {form}: stop() did not join the solver thread")
+        if pipe.failed:
+            raise AssertionError(f"mrt {form}: the solver failed ({pipe.error!r})")
+        if len(policies_seen) < 3:
+            raise AssertionError(f"mrt {form}: {len(policies_seen)} policies seen by the "
+                                 f"control loop")
+        if "lib" not in native._state or pipe._pol_buf._lib is not native._state["lib"]:
+            raise AssertionError(f"mrt {form}: the seqlock buffers are not the native library's")
+        pol, pol_obs = pipe.get_policy(), observer.get_policy()
+        if pol_obs is None or not (np.array_equal(pol.xs, pol_obs.xs)
+                                   and np.array_equal(pol.us, pol_obs.us) and pol.t0 == pol_obs.t0):
+            raise AssertionError(f"mrt {form}: the observer's policy is not the pipeline's")
+        if not tau_err <= 1e-9:
+            raise AssertionError(f"mrt {form}: native control_tick vs the controller's torques "
+                                 f"{tau_err:.3e}")
+        n_it = sum(r["stats"].iterations for r in record)
+        k1, k2 = sum(r["k1"] for r in record), sum(r["k2"] for r in record)
+        if (launches["K1"], launches["K2"]) != (k1, k2):
+            raise AssertionError(f"mrt {form}: launches outside the solves {launches}")
+        if k1 != n_it:
+            raise AssertionError(f"mrt {form}: K1 launched {k1} times in {n_it} SQP iterations")
+        lo, hi = (6 * n_it, 9 * n_it) if form == "wb" else (0, 0)
+        if not lo <= k2 <= hi:
+            raise AssertionError(f"mrt {form}: K2 launched {k2} times in {n_it} SQP iterations")
+        # the solver thread's last launches in the loop: launched again from
+        # this thread (bit-identical), and against the plain versions on the
+        # same inputs (which depend on the loop's wall-clock timing; the
+        # fixed observation's K1 above is the reproducible check)
+        same_bits = {}
+        args, kwargs, got = captured["K1"]
+        again = riccati.riccati_rollout_cuda(*args, **kwargs)
+        same_bits["K1"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same_bits["K1"]:
+            raise AssertionError(f"mrt {form}: K1 launched again on the solver thread's last "
+                                 f"inputs gives other bits")
+        e1, r1 = k1_solver_err(got, riccati.riccati_rollout_plain(*args, **kwargs),
+                               f"mrt {form} K1 (solver thread, last launch)")
+        e2 = r2 = None
+        if form == "wb":
+            args, kwargs, got = captured["K2"]
+            got = list(got[0]) + list(got[1])
+            again = fkvel.fkvel_cuda(*args, **kwargs)
+            same_bits["K2"] = all(torch.equal(a, b) for a, b in
+                                  zip(got, list(again[0]) + list(again[1])))
+            if not same_bits["K2"]:
+                raise AssertionError(f"mrt {form}: K2 launched again on the solver thread's "
+                                     f"last inputs gives other bits")
+            fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
+            ref2 = list(fk_p) + list(vb_p)
+            e2 = max_err(got, ref2, what=f"mrt {form} K2", **K2_TOL)
+            r2 = max(float(((a - b).abs() / (K2_TOL["atol"] + K2_TOL["rtol"] * b.abs())).max())
+                     for a, b in zip(got, ref2))
+        periods = np.diff(starts) * 1e3
+        solve_ms = np.array([r["stats"].solve_time for r in record]) * 1e3
+        row = dict(solves=pipe.solve_count, policies_seen=len(policies_seen), ticks=len(starts),
+                   wall_s=wall,
+                   tick_period_ms_p50=float(np.percentile(periods, 50)),
+                   tick_period_ms_p99=float(np.percentile(periods, 99)),
+                   tick_period_ms_max=float(periods.max()),
+                   overruns=int(sum(w > period for w in work)),
+                   controller_ms_p50=float(np.percentile(ctrl_ms, 50)),
+                   controller_ms_p99=float(np.percentile(ctrl_ms, 99)),
+                   controller_alone_ms_p50=float(np.percentile(alone_ms, 50)),
+                   gil_switch_interval_s=sys.getswitchinterval(),
+                   policy_age_ms_p50=float(np.percentile(ages, 50)) * 1e3,
+                   policy_age_ms_max=float(max(ages)) * 1e3,
+                   past_horizon_share=float(np.mean(past)), horizon_s=horizon,
+                   solve_ms_p50=float(np.percentile(solve_ms, 50)),
+                   sqp_iterations=n_it, k1_per_iteration=k1 / n_it,
+                   k2_per_iteration=k2 / n_it, k1_fixed_vs_plain=e1_fixed,
+                   k1_fixed_share_of_limit=r1_fixed, k1_last_vs_plain=e1,
+                   k1_last_share_of_limit=r1, k2_last_vs_plain=e2, k2_last_share_of_limit=r2,
+                   native_vs_controller=tau_err, relaunch_same_bits=same_bits,
+                   launches=launches)
+        out[form] = row
+        print(f"mrt {form}: {row['solves']} solves (p50 {row['solve_ms_p50']:.2f} ms), "
+              f"{row['policies_seen']} policies seen by the control loop, "
+              f"{row['ticks']} control ticks in {wall:.2f} s; tick period p50 "
+              f"{row['tick_period_ms_p50']:.3f} ms p99 {row['tick_period_ms_p99']:.3f} ms max "
+              f"{row['tick_period_ms_max']:.3f} ms; {row['overruns']} ticks over 2 ms; "
+              f"controller p50 {row['controller_ms_p50']:.3f} ms p99 "
+              f"{row['controller_ms_p99']:.3f} ms (alone, no solver thread: p50 "
+              f"{row['controller_alone_ms_p50']:.3f} ms; GIL switch interval "
+              f"{sys.getswitchinterval() * 1e3:g} ms); policy age p50 {row['policy_age_ms_p50']:.1f} "
+              f"ms max {row['policy_age_ms_max']:.1f} ms; ticks past the {horizon:.3f} s horizon "
+              f"{100 * row['past_horizon_share']:.2f} %; per SQP iteration in the solver thread "
+              f"K1 {row['k1_per_iteration']:.2f} K2 {row['k2_per_iteration']:.2f}; solver "
+              f"thread's K1 vs plain from the fixed observation {e1_fixed:.3e} "
+              f"({r1_fixed:.3f} of its limit), at its last launch {e1:.3e} ({r1:.3f} of "
+              f"its limit); its last K2 vs plain "
+              f"{'-' if e2 is None else f'{e2:.3e} ({r2:.3f} of its limit)'}; the last "
+              f"launches again from the main thread bit-identical {same_bits}; "
+              f"native control_tick vs controller {tau_err:.1e} | {card}")
+    return out
+
+
+def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
+    """The batched solve (`make_batched_solver`) at full width, one SQP
+    iteration: at B = 8 per instance against 8 unbatched solves and the
+    kernel run against the plain run; then `batched_throughput` at B = 1, 8,
+    64 and the largest B that fits by the peak memory of B = 8 and 64 (at
+    most 256), K1 launched once per batched iteration; K1's device time at
+    B = 8, 64 and the largest B against its bound; K2's last launch at each
+    of the sweep's row counts at B = 64 and the largest B against its plain
+    version, timed beside its bound. Adds K1's and K2's batched rows."""
+    from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem
+    from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+    from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_inputs, batched_throughput
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
+    from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+
+    pb = build_wb_problem(ASSETS / "humanoid23", N_NODES, device="cuda", dtype=torch.float32)
+    dev = pb.x0.device
+    cfg = SqpSolverConfig(n_nodes=N_NODES, dt=pb.cfg.sqp.dt, sqp_iterations=1)
+    pcfg = dataclasses.replace(cfg, rollout_backend="plain", flow_backend="plain")
+    solve = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+    plain = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, pcfg, device="cuda")
+    single = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+    B = 8
+    x0s, traj, params, lam = batched_inputs(pb, B, seed=0)
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    got = solve(0.0, x0s, traj, params, lam)
+    torch.cuda.synchronize()
+    k1, k2 = riccati.LAUNCHES, fkvel.LAUNCHES
+    if k1 != 1 or not 6 <= k2 <= 9:
+        raise AssertionError(f"batched B={B}: K1 {k1} and K2 {k2} launches in one iteration")
+    steps = got.step_size.tolist()
+    err_single = 0.0
+    for i in range(B):
+        s1 = single(0.0, x0s[i], Trajectory(xs=traj.xs[i], us=traj.us[i]),
+                    type(params)(*(a[i] for a in params)), lam[i])
+        err_single = max(err_single, scaled_err(
+            [got.traj.xs[i], got.traj.us[i]], [s1.traj.xs, s1.traj.us], SOLVE_TOL,
+            f"batched B={B} instance {i} vs its unbatched solve"))
+        if float(s1.step_size) != steps[i]:
+            raise AssertionError(f"batched B={B} instance {i}: step {steps[i]} batched, "
+                                 f"{float(s1.step_size)} unbatched")
+    ref = plain(0.0, x0s, traj, params, lam)
+    err_plain = scaled_err([got.traj.xs, got.traj.us], [ref.traj.xs, ref.traj.us], SOLVE_TOL,
+                           f"batched B={B} kernels vs plain")
+    if ref.step_size.tolist() != steps:
+        raise AssertionError(f"batched B={B}: kernels took steps {steps}, plain versions "
+                             f"{ref.step_size.tolist()}")
+    print(f"batched B={B}: steps {steps}; vs 8 unbatched solves max|d| {err_single:.3e}, "
+          f"kernels vs plain max|d| {err_plain:.3e} (limit {SOLVE_TOL} x max(1, max|ref|)); "
+          f"K1 {k1}, K2 {k2} launches in one batched iteration; K2 rows per launch "
+          f"{B * N_NODES} (RK4 tail), {2 * B * N_NODES} (top-2 sweep)")
+
+    k2_caps = {}   # batch -> {rows: (args, kwargs, outputs) of the sweep's last K2 launch}
+
+    def sweep(batch):
+        for mod in (riccati, fkvel):
+            mod.reset_launches()
+        n_rounds = 5 if batch <= 8 else 3
+        caps, by_rows = {}, {}
+        restore = _capture_last_launch(fkvel, "fkvel_cuda", caps,
+                                       lambda model, q, v: q.shape[0], by_rows)
+        try:
+            r = batched_throughput(batch, N_NODES, n_rounds=n_rounds, device="cuda")
+        finally:
+            restore()
+        n_it = n_rounds + 1
+        if riccati.LAUNCHES != n_it or not 6 * n_it <= fkvel.LAUNCHES <= 9 * n_it:
+            raise AssertionError(f"batched B={batch}: K1 {riccati.LAUNCHES}, K2 "
+                                 f"{fkvel.LAUNCHES} launches in {n_it} batched iterations")
+        if sum(by_rows.values()) != fkvel.LAUNCHES:
+            raise AssertionError(f"batched B={batch}: K2 launches by rows {by_rows}, "
+                                 f"{fkvel.LAUNCHES} counted")
+        if not r["finite"]:
+            raise AssertionError(f"batched B={batch}: non-finite cost")
+        k2_caps[batch] = caps
+        r.update(k1_launches=riccati.LAUNCHES, k2_launches=fkvel.LAUNCHES, iterations=n_it,
+                 k2_launches_by_rows=dict(sorted(by_rows.items())))
+        print(f"batched B={batch}: {r['instances_per_s']:.2f} instances/s, "
+              f"{r['sqp_iterations_per_s']:.2f} SQP it/s ({r['round_time_s'] * 1e3:.2f} ms a "
+              f"batched iteration); peak device memory {r['peak_memory_bytes'] / 2**20:.0f} MiB; "
+              f"launches in {n_it} iterations K1 {riccati.LAUNCHES} K2 {fkvel.LAUNCHES} (by "
+              f"rows a launch {r['k2_launches_by_rows']}) | {card}")
+        return r
+
+    report = {b: sweep(b) for b in (1, 8, 64)}
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_instance = (report[64]["peak_memory_bytes"] - report[8]["peak_memory_bytes"]) / 56
+    base = report[8]["peak_memory_bytes"] - 8 * per_instance
+    fits = int((0.8 * total - base) // per_instance)
+    b_max = min(256, fits)
+    print(f"batched: peak memory {base / 2**20:.0f} MiB + {per_instance / 2**20:.2f} MiB an "
+          f"instance; 80 % of the card's {total / 2**30:.1f} GiB fits B = {fits}, so the sweep "
+          f"ends at B = {b_max}")
+    if b_max not in report:
+        report[b_max] = sweep(b_max)
+
+    # K1 alone at the batched solve's shape, (B, 28, 58, 21) f32
+    def lq_batch(seed, batch):
+        r = np.random.default_rng(seed)
+        parts = [riccati.random_lq_data(r, N_NODES, 58, 21) for _ in range(batch)]
+        return [torch.as_tensor(np.stack([p_[k] for p_ in parts]), device=dev) for k in
+                ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu", "QN", "qN", "dx0")]
+
+    k1_rows = {}
+    for batch in sorted({8, 64, b_max}):
+        args = lq_batch(100 + batch, batch)
+        out_k = riccati.riccati_rollout_cuda(*args, reg=1e-8)
+        out_p = riccati.riccati_rollout_plain(*args, reg=1e-8)
+        torch.cuda.synchronize()
+        err = max_err(out_k, out_p, what=f"K1 batch={batch}", **K1_TOL)
+        t_dev = kernel_device_ms(lambda: riccati.riccati_rollout_cuda(*args, reg=1e-8), 10)
+        t_p = cuda_time_ms(lambda: riccati.riccati_rollout_plain(*args, reg=1e-8), 3, warmup=1)
+        nbytes, ops = riccati_work(batch, N_NODES, 58, 21, 4)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        waves = -(-batch // N_SMS)
+        sm_ms = waves * riccati_work(1, N_NODES, 58, 21, 4)[1] / (PEAK_F32_FLOPS / N_SMS) * 1e3
+        k1_rows[batch] = dict(name=f"riccati_rollout batch={batch}", route="cuda",
+                              source="wb_humanoid_mpc_tpu_torch/csrc/riccati.cu",
+                              replaces="wb_humanoid_mpc_tpu/ops/riccati.py:129",
+                              launches=report[batch]["k1_launches"], max_abs_err=err, ms=t_dev,
+                              plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"K1 riccati (28,58,21) batch={batch}: max|kernel-plain| {err:.3e}; kernel "
+              f"{t_dev * 1e3:.1f} us on the device ({t_dev * 1e3 / batch:.2f} us an instance); "
+              f"plain {t_p * 1e3:.1f} us per call; bound {b_ms * 1e3:.3f} us ({b_by}), "
+              f"{100 * b_ms / t_dev:.3f} % of it; one-SM floor x {waves} wave(s) "
+              f"{sm_ms * 1e3:.1f} us | {card}")
+    rows["riccati_batched"] = [k1_rows[b] for b in sorted(k1_rows)]
+
+    # K2 at the batched solve's row counts: the sweep's last launch at each
+    # row count, B = 64 and the largest B, against the plain version on the
+    # same inputs
+    k2_rows = []
+    for batch in sorted({64, b_max}):
+        for n_rows, (args, kwargs, got) in sorted(k2_caps[batch].items()):
+            model_, q, v = args
+            got = list(got[0]) + list(got[1])
+            fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = max_err(got, list(fk_p) + list(vb_p), what=f"K2 batch={batch} rows={n_rows}",
+                          **K2_TOL)
+            t_dev = kernel_device_ms(lambda: fkvel.fkvel_cuda(*args, **kwargs), 20)
+            t_p = cuda_time_ms(lambda: fkvel.fkvel_plain(*args, **kwargs), 3, warmup=1)
+            nbytes, ops = fkvel_work(n_rows, model_.n_joints, q.element_size())
+            b_ms, b_by = bound_ms(nbytes, ops)
+            launches = report[batch]["k2_launches_by_rows"][n_rows]
+            k2_rows.append(dict(name=f"fkvel batch={batch} rows={n_rows}", route="cuda",
+                                source="wb_humanoid_mpc_tpu_torch/csrc/fkvel.cu",
+                                replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
+                                launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            print(f"K2 fkvel batch={batch} rows={n_rows} (the sweep's last launch of that "
+                  f"size, {launches} launches of it in {report[batch]['iterations']} "
+                  f"iterations): max|kernel-plain| {err:.3e} (atol {K2_TOL['atol']} rtol "
+                  f"{K2_TOL['rtol']}); kernel {t_dev * 1e3:.2f} us on the device; plain "
+                  f"{t_p * 1e3:.1f} us per call; bound {b_ms * 1e3:.4f} us ({b_by}: "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} MFLOP), {100 * b_ms / t_dev:.2f} % "
+                  f"of it | {card}")
+    rows["fkvel_batched"] = k2_rows
+    return {"vs_unbatched_max_err": err_single, "vs_plain_max_err": err_plain, "steps_b8": steps,
+            "sweep": {b: {k: r[k] for k in ("instances_per_s", "sqp_iterations_per_s",
+                                             "round_time_s", "peak_memory_bytes",
+                                             "k1_launches", "k2_launches",
+                                             "k2_launches_by_rows", "iterations")}
+                      for b, r in report.items()},
+            "fits": fits, "b_max": b_max}
 
 
 def main() -> int:
@@ -716,10 +1177,19 @@ def main() -> int:
     loops = closed_loops(torch, riccati, fkvel, rollout, card)
     print(json.dumps({"closed_loop": loops, "card": card}))
 
+    # ---- 10. the MRT host runtime: solver thread + 500 Hz control loop ----
+    mrt = mrt_phase(torch, riccati, fkvel, card)
+    print(json.dumps({"mrt": mrt, "card": card}))
+
+    # ---- 11. the batched solve ----
+    batched = batched_phase(torch, riccati, fkvel, card, rows)
+    print(json.dumps({"batched": batched, "card": card}))
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
     kernels = [{k: r[k] for k in keys if k in r}
-               for r in (rows["riccati"], rows["fkvel"], rows["rollout"])]
+               for r in (rows["riccati"], rows["fkvel"], rows["rollout"],
+                         *rows["riccati_batched"], *rows["fkvel_batched"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

@@ -297,3 +297,82 @@ def test_closed_loop_kernels_match_plain(card, formulation):
         assert 6 * n_iter <= counts[1] <= 9 * n_iter
     else:
         assert counts[1] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_riccati_kernel_batch_of_eight(card, dtype):
+    """K1 at the batched solve's leading batch of 8, (28, 58, 21): 8 blocks."""
+    args = _lq(8, 28, 58, 21, dtype, card, batch=8)
+    before = riccati.LAUNCHES
+    got = riccati.riccati_rollout_cuda(*args, reg=1e-8)
+    assert riccati.LAUNCHES == before + 1
+    assert got[0].shape == (8, 28, 21, 58) and got[2].shape == (8, 29, 58)
+    _close(got, riccati.riccati_rollout_plain(*args, reg=1e-8), TOL[dtype], "K1 batch of eight")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_batched_solve_kernels_match_plain(card, dtype):
+    """A B = 4 batched solve (`make_batched_solver`, humanoid23, N = 6, two
+    SQP iterations, seeded perturbed x0) through the kernels against the same
+    solve on the plain versions: per instance 2e-3 x max(1, max|ref|) in f32,
+    1e-9 in f64, the same steps; K1 once per batched iteration."""
+    from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+    from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_inputs
+
+    pb = build_wb_problem(ASSETS / "humanoid23", 6, device=card, dtype=dtype)
+    inputs = batched_inputs(pb, 4, seed=1, spread=0.02)
+    sols = []
+    for backend in ("cuda", "plain"):
+        cfg = SqpSolverConfig(n_nodes=6, dt=pb.cfg.sqp.dt, sqp_iterations=2,
+                              rollout_backend=backend, flow_backend=backend)
+        solve = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=card)
+        riccati.reset_launches()
+        sols.append(solve(0.0, *inputs))
+        if backend == "cuda":
+            assert riccati.LAUNCHES == 2
+    got, ref = sols
+    tol = 2e-3 if dtype == torch.float32 else 1e-9
+    for a, b in ((got.traj.xs, ref.traj.xs), (got.traj.us, ref.traj.us)):
+        for i in range(4):
+            assert float((a[i] - b[i]).abs().max()) <= tol * max(1.0, float(b[i].abs().max()))
+    assert got.step_size.tolist() == ref.step_size.tolist()
+    assert bool(torch.isfinite(got.cost).all())
+
+
+def test_mrt_pipeline_on_the_card(card):
+    """A 2 s `MrtPipeline` run (humanoid23 whole-body, N = 6, f32): the
+    solver thread on the card, a 500 Hz control loop in this thread pushing
+    replayed policy states and computing torques with `WBMrtController` on
+    its own stream; at least one policy, no failure, finite torques, the
+    thread joined."""
+    import time
+
+    from wb_humanoid_mpc_tpu_torch.interface import build_wb_mpc, mpc_files
+    from wb_humanoid_mpc_tpu_torch.mpc.async_runtime import MrtPipeline
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import WBMrtController
+
+    mpc = build_wb_mpc(*mpc_files(ASSETS / "humanoid23", "wb"), n_nodes=6, device=card)
+    ctrl = WBMrtController(mpc.model, device=card)
+    assert ctrl.stream is not None and ctrl.stream != torch.cuda.current_stream(card)
+    x = np.asarray(mpc.initial_state, dtype=float)
+    pipe = MrtPipeline(mpc.runtime, nx=x.shape[0], device=card)
+    pipe.start()
+    taus = []
+    try:
+        t_start = time.perf_counter()
+        k = 0
+        while time.perf_counter() - t_start < 2.0 and not pipe.failed:
+            t = 0.002 * k
+            pipe.push_observation(t, x, np.zeros(4))
+            pol = pipe.get_policy()
+            action = ctrl.compute(t, x, pol)
+            taus.append(action.total_torque(x[6:29], x[35:58]))
+            if pol is not None:
+                x = np.asarray(pol.evaluate(t + 0.002)[0], dtype=float)
+            k += 1
+            time.sleep(max(0.0, t_start + 0.002 * k - time.perf_counter()))
+    finally:
+        pipe.stop(timeout=60.0)
+    assert pipe._thread is None
+    assert not pipe.failed and pipe.solve_count >= 1
+    assert np.isfinite(np.asarray(taus)).all()

@@ -20,9 +20,13 @@ import torch
 
 import wb_humanoid_mpc_tpu_torch
 from wb_humanoid_mpc_tpu_torch import convert, interface
+from wb_humanoid_mpc_tpu_torch.mpc.async_runtime import MrtPipeline
+from wb_humanoid_mpc_tpu_torch.mpc.controller import CentroidalMrtController, WBMrtController
 from wb_humanoid_mpc_tpu_torch.mpc.runtime import MpcRuntime
 from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import NodeParams
 from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati, rollout
+from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     SqpSolverConfig,
@@ -43,7 +47,8 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax():
     """Import every module of the port in a fresh interpreter: no `jax*` and
-    no `wb_humanoid_mpc_tpu.*` module may be loaded, and no kernel built."""
+    no `wb_humanoid_mpc_tpu.*` module may be loaded, and neither a kernel
+    nor the native MRT core built."""
     mods = _port_modules()
     assert "wb_humanoid_mpc_tpu_torch.solver.sqp" in mods and len(mods) > 20
     # the closed loop: reference pipeline, centroidal formulation, runtime, sim
@@ -53,12 +58,19 @@ def test_port_imports_no_jax():
             "wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp", "wb_humanoid_mpc_tpu_torch.mpc.gains",
             "wb_humanoid_mpc_tpu_torch.mpc.runtime", "wb_humanoid_mpc_tpu_torch.sim.dummy",
             } <= set(mods)
+    # the host runtime and the batched solve
+    assert {"wb_humanoid_mpc_tpu_torch.native", "wb_humanoid_mpc_tpu_torch.mpc.controller",
+            "wb_humanoid_mpc_tpu_torch.mpc.async_runtime",
+            "wb_humanoid_mpc_tpu_torch.parallel.batched",
+            "wb_humanoid_mpc_tpu_torch.parallel.scaling"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from wb_humanoid_mpc_tpu_torch.ops import _lib\n"
+            "from wb_humanoid_mpc_tpu_torch import native\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'wb_humanoid_mpc_tpu'))\n"
-            "print(json.dumps({'bad': bad, 'built': sorted(_lib._state)}))\n")
+            "print(json.dumps({'bad': bad,\n"
+            "                  'built': sorted(_lib._state) + sorted(native._state)}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -95,6 +107,13 @@ ENTRY_POINTS = {
     "build_centroidal_mpc": lambda pb: interface.build_centroidal_mpc(
         *interface.mpc_files(TOY, "centroidal"), n_nodes=3),
     "MpcRuntime": lambda pb: MpcRuntime(None, None, None, 3, 0.1, 14, np.zeros(24)),
+    "CentroidalMrtController": lambda pb: CentroidalMrtController(pb.model),
+    "WBMrtController": lambda pb: WBMrtController(pb.model),
+    "MrtPipeline": lambda pb: MrtPipeline(
+        MpcRuntime(None, None, None, 3, 0.1, 14, np.zeros(24), device="cpu"), 4),
+    "make_batched_solver": lambda pb: make_batched_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)),
+    "batched_throughput": lambda pb: batched_throughput(2, n_nodes=3),
 }
 
 
@@ -107,7 +126,10 @@ def test_entry_point_defaults_to_the_card(entry, toy_problem, no_card):
           "centroidal_node_params_from_numpy": convert.centroidal_node_params_from_numpy,
           "build_wb_mpc": interface.build_wb_mpc,
           "build_centroidal_mpc": interface.build_centroidal_mpc,
-          "MpcRuntime": MpcRuntime}[entry]
+          "MpcRuntime": MpcRuntime, "CentroidalMrtController": CentroidalMrtController,
+          "WBMrtController": WBMrtController, "MrtPipeline": MrtPipeline,
+          "make_batched_solver": make_batched_solver,
+          "batched_throughput": batched_throughput}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](toy_problem)

@@ -100,16 +100,17 @@ def stage_leaf(A, B, d, Qxx, Quu, Qux, qx, qu, reg: float) -> _Elem:
 
 
 def _leaves(lq, reg: float) -> _Elem:
-    nx = lq.A.shape[-1]
     stage = stage_leaf(lq.A, lq.B, lq.d, lq.Qxx, lq.Quu, lq.Qux, lq.qx, lq.qu, reg)
-    zeros = lq.A.new_zeros
-    term = _Elem(A=zeros(1, nx, nx), b=zeros(1, nx), C=zeros(1, nx, nx), J=lq.QN[None],
-                 eta=-lq.qN[None])
+    QN, qN = lq.QN[None], lq.qN[None]
+    term = _Elem(A=torch.zeros_like(QN), b=torch.zeros_like(qN), C=torch.zeros_like(QN), J=QN,
+                 eta=-qN)
     return _Elem(*(torch.cat([s, t]) for s, t in zip(stage, term)))
 
 
 def parallel_backward_pass(lq, reg: float = 1e-8) -> RiccatiSolution:
-    """Stage data [N, ...] -> (K, k, P, p) of the sequential `backward_pass`."""
+    """Stage data [N, ...] -> (K, k, P, p) of the sequential `backward_pass`.
+    A batch of instances goes behind the node axis: stage data [N, *batch,
+    ...], QN and qN [*batch, ...]."""
     comb = _scan(_combine, _leaves(lq, reg), reverse=True)
     P = 0.5 * (comb.J + _T(comb.J))   # [N+1, nx, nx]
     p = -comb.eta                      # [N+1, nx]

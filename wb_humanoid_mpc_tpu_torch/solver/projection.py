@@ -75,4 +75,4 @@ def project_lq(lq: LQApprox, Cx: torch.Tensor, Du: torch.Tensor, g: torch.Tensor
 
 def recover_controls(proj: ProjectionData, dxs: torch.Tensor, dzs: torch.Tensor) -> torch.Tensor:
     """du_k = L_k dx_k + Z_k dz_k + w_k."""
-    return _mv(proj.L, dxs[:-1]) + _mv(proj.Z, dzs) + proj.w
+    return _mv(proj.L, dxs[..., :-1, :]) + _mv(proj.Z, dzs) + proj.w

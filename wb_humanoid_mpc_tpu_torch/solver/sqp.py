@@ -18,6 +18,13 @@ PyTorch counterpart of `wb_humanoid_mpc_tpu/solver/sqp.py`. Per iteration:
 `make_staged_sqp_solver` runs the same iteration phase by phase and returns
 each phase's wall time (the reference's benchmark contract).
 
+`solve` also takes a leading batch of problem instances (JAX's
+`vmap(solve)`, `parallel/batched.py`): x0 [B, nx], the trajectory, params
+and multipliers with B before their node axis. The stage data of all
+instances go through one linearization, one K1 launch over the batch and one
+K2 launch per flow stage over instances x nodes; costs, norms and the
+accepted step are per instance.
+
 JAX fuses an iteration into one XLA program; the port runs eagerly (no
 `torch.compile`, no CUDA graphs yet).
 """
@@ -119,22 +126,44 @@ def _rho_lq(cfg: SqpSolverConfig) -> float:
     return cfg.rho if cfg.equality_handling == "al" else min(cfg.rho, 1.0)
 
 
+_STAGE_FIELDS = ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu")
+
+
 def _solve_lq(lq, dx0, cfg: SqpSolverConfig):
-    """The damped LQ's (dxs, dus): the fused kernel path or the scan pair."""
+    """The damped LQ's (dxs, dus): the fused kernel path (a leading batch of
+    instances in one launch) or the scan pair."""
     if cfg.parallel_riccati:
-        sol = parallel_backward_pass(lq, cfg.reg_num)
-        return parallel_forward_pass(lq, sol, dx0)
+        # the scans run over axis 0: the node axis goes before the batch
+        nb = dx0.dim() - 1
+        lq = lq._replace(**{f: torch.movedim(getattr(lq, f), nb, 0) for f in _STAGE_FIELDS})
+        dxs, dus = parallel_forward_pass(lq, parallel_backward_pass(lq, cfg.reg_num), dx0)
+        return torch.movedim(dxs, 0, nb), torch.movedim(dus, 0, nb)
     return riccati_rollout(lq, dx0, cfg.reg_num, cfg.rollout_backend)
 
 
 def _times(t0, x0, cfg):
-    return t0 + cfg.dt * torch.arange(cfg.n_nodes + 1, dtype=x0.dtype, device=x0.device)
+    """[*batch, N+1] node times: one grid, broadcast over x0's batch dims."""
+    times = t0 + cfg.dt * torch.arange(cfg.n_nodes + 1, dtype=x0.dtype, device=x0.device)
+    return times.expand(*x0.shape[:-1], cfg.n_nodes + 1)
 
 
 def _step(traj, alpha, dxs, dus) -> Trajectory:
-    """traj + alpha (dxs, dus); alpha a scalar or [B] (one candidate each)."""
+    """traj + alpha (dxs, dus), alpha one step per instance ([*batch])."""
     a = alpha[..., None, None]
     return Trajectory(xs=traj.xs + a * dxs, us=traj.us + a * dus)
+
+
+def _candidates(traj, alphas, dxs, dus) -> Trajectory:
+    """Line-search candidates traj + alpha (dxs, dus) for each of alphas [C]:
+    a leading candidate dim before the batch dims."""
+    a = alphas.reshape(-1, *([1] * dxs.dim()))
+    return Trajectory(xs=traj.xs + a * dxs, us=traj.us + a * dus)
+
+
+def _first_true(alphas, ok):
+    """Per instance, the first (largest) alpha whose candidate is accepted,
+    or 0 when none is: ok [C, *batch] -> [*batch]."""
+    return alphas[torch.argmax(ok.to(alphas.dtype), dim=0)] * ok.any(dim=0).to(alphas.dtype)
 
 
 def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
@@ -159,7 +188,7 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
         # (wb_humanoid_mpc_tpu_torch/tools/profile_sqp.py)
         with record_function("sqp.lq"):
             lq = fns.lq_approximation(traj, times, params, lam, rho_lq)
-        dx0 = x0 - traj.xs[0]
+        dx0 = x0 - traj.xs[..., 0, :]
         if cfg.equality_handling == "projection":
             with record_function("sqp.projection"):
                 reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
@@ -176,45 +205,49 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
             if cfg.line_search == "filter":
                 # ocs2 FilterLinesearch: the largest accepted step wins. The
                 # baseline (c0, v0) comes with the LQ pass; the top-2 steps
-                # are tried first.
+                # are tried first. Every instance of a batch has its own.
                 c0, v0 = lq.cost_pure, lq.viol
 
                 def try_alphas(a):
-                    cs, vs = fns.candidate_perf(_step(traj, a, dxs, dus), times, params)
+                    cs, vs = fns.candidate_perf(_candidates(traj, a, dxs, dus), times, params)
                     return filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
 
                 ok_hi = try_alphas(alphas[:n_hi])
-                # JAX takes this branch with lax.cond on the device; here it
-                # is one host sync per iteration
-                if bool(ok_hi.any()):
-                    ok_lo = torch.zeros(alphas.shape[0] - n_hi, dtype=torch.bool,
-                                        device=alphas.device)
+                # JAX takes this branch with lax.cond on the device (a select
+                # under vmap); here it is one host sync per iteration: the
+                # rest of the ladder runs when some instance accepted neither
+                # top step, and counts only for those instances
+                need_lo = ~ok_hi.any(dim=0)
+                if bool(need_lo.any()):
+                    ok_lo = try_alphas(alphas[n_hi:]) & need_lo
                 else:
-                    ok_lo = try_alphas(alphas[n_hi:])
-                ok = torch.cat([ok_hi, ok_lo])
-                alpha = alphas[torch.argmax(ok.to(alphas.dtype))] * ok.any().to(alphas.dtype)
+                    ok_lo = torch.zeros(alphas.shape[0] - n_hi, *need_lo.shape,
+                                        dtype=torch.bool, device=alphas.device)
+                alpha = _first_true(alphas, torch.cat([ok_hi, ok_lo]))
             else:
                 # AL merit: all steps at once (one K2 launch per flow stage
-                # over steps x nodes); the largest step that decreases it
+                # over steps x instances x nodes); the largest step that
+                # decreases it
                 merit0 = merit(traj, times, params, lam)
-                merits = merit(_step(traj, alphas, dxs, dus), times, params, lam)
+                merits = merit(_candidates(traj, alphas, dxs, dus), times, params, lam)
                 # a candidate that produced NaN/inf must never be selected
                 merits = torch.where(torch.isfinite(merits), merits,
                                      torch.full_like(merits, float("inf")))
                 ok = merits < merit0
-                best = torch.argmin(merits)
-                pick = torch.where(ok.any(), torch.argmax(ok.to(merits.dtype)), best)
-                alpha = alphas[pick] * (merits[pick] < merit0).to(merits.dtype)
+                best = torch.argmin(merits, dim=0)
+                pick = torch.where(ok.any(dim=0), torch.argmax(ok.to(merits.dtype), dim=0), best)
+                picked = torch.gather(merits, 0, pick[None])[0]
+                alpha = alphas[pick] * (picked < merit0).to(merits.dtype)
             new_traj = _step(traj, alpha, dxs, dus)
 
         with record_function("sqp.eq_residuals"):
             g = fns.eq_residuals(new_traj, times, params)
-            g_max = torch.amax(torch.abs(g))
+            g_max = torch.amax(torch.abs(g), dim=(-2, -1))
             if cfg.equality_handling == "al":
                 # safeguarded update: polish when nearly feasible; at large
                 # violation only reward genuine progress; clamped
                 do_update = (g_max < cfg.al_update_threshold) | (g_max < cfg.al_decrease * g_prev)
-                lam = torch.where(do_update, lam + cfg.rho * g, lam)
+                lam = torch.where(do_update[..., None, None], lam + cfg.rho * g, lam)
                 lam = torch.clamp(lam, -cfg.lam_max, cfg.lam_max)
         return new_traj, lam, g_max, (lq.cost, g_max, lq.defect_norm, alpha)
 
@@ -224,7 +257,7 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
         times = _times(t0, x0, cfg)
         alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
         traj, stats = init_traj, None
-        g_prev = (torch.amax(torch.abs(fns.eq_residuals(init_traj, times, params)))
+        g_prev = (torch.amax(torch.abs(fns.eq_residuals(init_traj, times, params)), dim=(-2, -1))
                   if cfg.equality_handling == "al" else None)
         for _ in range(cfg.sqp_iterations):
             traj, lam, g_prev, stats = sqp_iteration(traj, lam, g_prev, times, params, x0,
@@ -272,9 +305,9 @@ def make_staged_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *
         return dxs, recover_controls(proj, dxs, dzs)
 
     def f_linesearch(traj, times, params, c0, v0, dxs, dus, alphas):
-        cs, vs = fns.candidate_perf(_step(traj, alphas, dxs, dus), times, params)
+        cs, vs = fns.candidate_perf(_candidates(traj, alphas, dxs, dus), times, params)
         ok = filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
-        alpha = alphas[torch.argmax(ok.to(alphas.dtype))] * ok.any().to(alphas.dtype)
+        alpha = _first_true(alphas, ok)
         new_traj = _step(traj, alpha, dxs, dus)
         g = fns.eq_residuals(new_traj, times, params)
         return new_traj, alpha, torch.amax(torch.abs(g))

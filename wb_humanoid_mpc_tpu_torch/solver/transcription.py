@@ -117,11 +117,11 @@ def _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho):
 
 
 def _tangent_jacobians(f, primal, n):
-    """Jacobians of every output of f at `primal` ([N, n]) by forward mode:
+    """Jacobians of every output of f at `primal` ([..., n]) by forward mode:
     one jvp per identity tangent, batched by torch.func.vmap. Returns
-    (outputs, [N, out, n] Jacobians of each output)."""
+    (outputs, [..., out, n] Jacobians of each output)."""
     eye = torch.eye(n, dtype=primal.dtype, device=primal.device)
-    tangents = eye[:, None, :].expand(n, primal.shape[0], n)
+    tangents = eye.reshape(n, *([1] * (primal.dim() - 1)), n).expand(n, *primal.shape)
 
     def jvp_one(tangent):
         return torch.func.jvp(f, (primal,), (tangent,))
@@ -222,12 +222,14 @@ def make_node_lq(ocp, flow, dt: float, bp: BarrierParams,
     return node_lq_exact if sensitivity == "exact" else node_lq_fused
 
 
-def _stage(params):
-    return type(params)(*(a[:-1] for a in params))
+def _stage(params, nb: int):
+    """The N stage nodes of per-node params [*batch, N+1, ...] (nb batch dims)."""
+    return type(params)(*(a[(slice(None),) * nb + (slice(None, -1),)] for a in params))
 
 
-def _last(params):
-    return type(params)(*(a[-1] for a in params))
+def _last(params, nb: int):
+    """The terminal node of per-node params [*batch, N+1, ...]."""
+    return type(params)(*(a[(slice(None),) * nb + (-1,)] for a in params))
 
 
 class LQFunctions(NamedTuple):
@@ -248,10 +250,18 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
     `cost_and_violation` and `candidate_perf` also take trajectories with
     leading candidate dims and return one value per candidate.
 
+    A leading batch of problem instances takes the place of JAX's `vmap`:
+    `times` [*batch, N+1] carries the batch shape, and the trajectory, the
+    params [*batch, N+1, ...] and the multipliers [*batch, N, nc] have it
+    before their node axis (candidate dims go before the batch dims). Every
+    reduction over nodes is per instance: the LQ's costs and norms have the
+    batch shape, the stage data [*batch, N, ...].
+
     flow_batch(ts [B], xs [B,nx], us [B,nu]) -> xdots [B,nx] runs the pure RK4
     stages and rollouts outside the linearization (the CUDA FK kernel on the
-    card, `models/wb_model.py::flow_map_batch`); the default is the batched
-    `flow`, which is mathematically identical.
+    card, `models/wb_model.py::flow_map_batch`), over every candidate,
+    instance and node in one call; the default is the batched `flow`, which
+    is mathematically identical.
     """
     if flow_batch is None:
         flow_batch = flow
@@ -272,41 +282,48 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
         return xs_s + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
     def terminal(traj, times, params):
-        return ocp.terminal_residual(times[-1], traj.xs[..., -1, :], _last(params))
+        nb = times.dim() - 1
+        return ocp.terminal_residual(times[..., -1], traj.xs[..., -1, :], _last(params, nb))
+
+    def stage_terms(traj, times, params):
+        return ocp.node_terms(times[..., :-1], traj.xs[..., :-1, :], traj.us,
+                              _stage(params, times.dim() - 1))
 
     def lq_approximation(traj: Trajectory, times, params, lam, rho) -> LQApprox:
         xs, us = traj.xs, traj.us
+        nb = times.dim() - 1
         (A, B, x_next, Qxx, Quu, Qux, qx, qu, costs, gmax,
-         g_res, Cx, Du, c_pure, g_sse) = node_lq(times[:-1], xs[:-1], us, _stage(params),
-                                                 lam, rho)
+         g_res, Cx, Du, c_pure, g_sse) = node_lq(times[..., :-1], xs[..., :-1, :], us,
+                                                 _stage(params, nb), lam, rho)
         if sensitivity == "node":
-            x_next = rk4_tail(times[:-1], xs[:-1], us, x_next)   # the slot held k1
-        d = x_next - xs[1:]
+            x_next = rk4_tail(times[..., :-1], xs[..., :-1, :], us, x_next)  # the slot held k1
+        d = x_next - xs[..., 1:, :]
 
         # terminal quadratic (the residual is linear in x: its Jacobian is
         # taken by the same forward-mode rule)
-        pT = _last(params)
+        pT = _last(params, nb)
+        tT = times[..., -1]
 
         def term_res(x):
-            return ocp.terminal_residual(times[-1], x, pT)
+            return (ocp.terminal_residual(tT, x, pT),)
 
-        nx = xs.shape[-1]
-        eye = torch.eye(nx, dtype=xs.dtype, device=xs.device)
-        rT, JT = torch.func.vmap(lambda tv: torch.func.jvp(term_res, (xs[-1],), (tv,)),
-                                 out_dims=(None, 1))(eye)
-        QN = JT.T @ JT
-        qN = JT.T @ rT
-        term = 0.5 * torch.sum(rT ** 2)
+        (rT,), (JT,) = _tangent_jacobians(term_res, xs[..., -1, :], xs.shape[-1])
+        JTt = JT.transpose(-1, -2)
+        QN = JTt @ JT
+        qN = (JTt @ rT[..., None])[..., 0]
+        term = 0.5 * torch.sum(rT ** 2, dim=-1)
         return LQApprox(A=A, B=B, d=d, Qxx=Qxx, Quu=Quu, Qux=Qux, qx=qx, qu=qu,
-                        QN=QN, qN=qN, cost=torch.sum(costs) + term,
-                        g_norm=torch.amax(gmax), defect_norm=torch.amax(torch.abs(d)),
+                        QN=QN, qN=qN, cost=torch.sum(costs, dim=-1) + term,
+                        g_norm=torch.amax(gmax, dim=-1),
+                        defect_norm=torch.amax(torch.abs(d), dim=(-2, -1)),
                         Cx=Cx, Du=Du, g_res=g_res,
-                        cost_pure=torch.sum(c_pure) + term,
-                        viol=torch.sqrt(torch.sum(g_sse) + torch.sum(d ** 2)))
+                        cost_pure=torch.sum(c_pure, dim=-1) + term,
+                        viol=torch.sqrt(torch.sum(g_sse, dim=-1)
+                                        + torch.sum(d ** 2, dim=(-2, -1))))
 
     def total_cost(traj: Trajectory, times, params, lam, rho):
         """(nonlinear cost + AL terms, max |g|): the line-search merit's cost."""
-        terms = ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params))
+        terms = stage_terms(traj, times, params)
         costs = node_cost_terms(terms, bp, lam, rho)
         rT = terminal(traj, times, params)
         return (torch.sum(costs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
@@ -315,7 +332,7 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
     def cost_and_violation(traj: Trajectory, times, params):
         """(pure cost incl. barriers, SSE of equality residuals, max |g|): the
         ocs2 PerformanceIndex pieces of the filter line search."""
-        terms = ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params))
+        terms = stage_terms(traj, times, params)
         costs = node_cost_terms(terms, bp, torch.zeros_like(terms.g), 1e-12)
         rT = terminal(traj, times, params)
         return (torch.sum(costs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),
@@ -324,11 +341,11 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
 
     def defects(traj: Trajectory, times):
         xs, us = traj.xs[..., :-1, :], traj.us
-        k1 = fb(times[:-1], xs, us)
-        return rk4_tail(times[:-1], xs, us, k1) - traj.xs[..., 1:, :]
+        k1 = fb(times[..., :-1], xs, us)
+        return rk4_tail(times[..., :-1], xs, us, k1) - traj.xs[..., 1:, :]
 
     def eq_residuals(traj: Trajectory, times, params):
-        return ocp.node_terms(times[:-1], traj.xs[..., :-1, :], traj.us, _stage(params)).g
+        return stage_terms(traj, times, params).g
 
     def candidate_perf(traj: Trajectory, times, params):
         """(pure cost, total violation) of line-search candidates: traj.xs
@@ -336,10 +353,11 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
         One fused node sweep gives the terms and the RK4 k1; k2..k4 run
         batched through `flow_batch` over candidates x nodes."""
         xs, us = traj.xs, traj.us
-        terms, k1 = ocp.fused_node(times[:-1], xs[..., :-1, :], us, _stage(params))
+        terms, k1 = ocp.fused_node(times[..., :-1], xs[..., :-1, :], us,
+                                   _stage(params, times.dim() - 1))
         cs = node_cost_terms(terms, bp, torch.zeros_like(terms.g), 1e-12)
         g_sse = torch.sum(terms.g ** 2, dim=-1)
-        x_next = rk4_tail(times[:-1], xs[..., :-1, :], us, k1)
+        x_next = rk4_tail(times[..., :-1], xs[..., :-1, :], us, k1)
         d = x_next - xs[..., 1:, :]
         rT = terminal(traj, times, params)
         return (torch.sum(cs, dim=-1) + 0.5 * torch.sum(rT ** 2, dim=-1),

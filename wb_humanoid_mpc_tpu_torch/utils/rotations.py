@@ -92,3 +92,27 @@ def euler_zyx_rate_map_derivative(euler_zyx, rates):
         [zero, -sz * tzd, cz * tzd * cy - sz * sy * tyd],
         [zero, zero, -cy * tyd],
     ])
+
+
+def world_omega_to_euler_zyx_rate_map(euler_zyx):
+    """E(theta)^-1: world angular velocity -> euler-ZYX rates (closed form;
+    singular at |theta_y| = pi/2, the reference's convention)."""
+    tz, ty = euler_zyx[..., 0], euler_zyx[..., 1]
+    cz, sz = torch.cos(tz), torch.sin(tz)
+    cy, sy = torch.cos(ty), torch.sin(ty)
+    ty_sec = 1.0 / cy
+    zero, one = torch.zeros_like(tz), torch.ones_like(tz)
+    return _mat([[cz * sy * ty_sec, sz * sy * ty_sec, one],
+                 [-sz, cz, zero],
+                 [cz * ty_sec, sz * ty_sec, zero]])
+
+
+def quat_to_rot(q_wxyz):
+    """Unit quaternion [w, x, y, z] -> rotation matrix."""
+    w, x, y, z = q_wxyz[..., 0], q_wxyz[..., 1], q_wxyz[..., 2], q_wxyz[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return _mat([[ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy)],
+                 [2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx)],
+                 [2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz]])
