@@ -24,7 +24,12 @@ rows), the stance setup of `bench.py`, in float32:
 - the batched solve: B = 8 against 8 unbatched solves and against its plain
   run, a sweep of B up to the largest that fits (at most 256), K1 at a
   leading batch of 8, 64 and that B, and K2 at the sweep's row counts
-  (B x 28 and 2 B x 28) at B = 64 and that B.
+  (B x 28 and 2 B x 28) at B = 64 and that B;
+- the 2-D (batch x horizon) sharded solve, the port's `dryrun_multichip`:
+  the walking schedule, 2 SQP iterations, f32 and f64, on a 1x1 mesh
+  (`nccl`) and on 1x4 and 2x4 meshes of `gloo` ranks on this one card
+  (`parallel/multihost.py::run_ranks`), against `make_batched_solver`, and
+  K2 at the sharded path's row counts.
 
 Each path checks that its kernels were launched as the configuration
 implies, that the result is finite and that it agrees with the plain
@@ -808,6 +813,154 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
             "fits": fits, "b_max": b_max}
 
 
+SHARDED_MESHES = (("1x1", 1, 1, "nccl"), ("1x4", 1, 4, "gloo"), ("2x4", 2, 4, "gloo"))
+SHARDED_ITERS = 2
+SHARDED_GATE = {"float32": 2e-2, "float64": 1e-4}   # max |dxs|: `dryrun_multichip`'s gates
+# and a tighter limit, x max(1, max|ref|): on an H100 80GB HBM3 (700 W) every
+# mesh read 1.5e-6 - 3.5e-6 (f32) and 5.5e-10 - 6.2e-10 (f64), see PERF.md
+SHARDED_LIMIT = {"float32": 1e-4, "float64": 1e-8}
+# K2 launches of one sharded SQP iteration on every rank (sensitivity "node"):
+# the LQ's RK4 tail (k2..k4), the 8-step filter sweep's rollout and the final
+# merit's rollout, 3 stages each through `flow_batch` (k1 comes with the
+# node terms, `ocp.fused_node`)
+K2_PER_SHARDED_ITERATION = 3 + 3 + 3
+
+
+def sharded_rank(cases) -> list:
+    """One rank of the `sharded` phase: `dryrun.sharded_sqp_case` for each
+    case, K2's last launch at each row count kept; rank (0, 0) returns those
+    launches' inputs and outputs as numpy, for the parent to hold against the
+    plain version."""
+    from wb_humanoid_mpc_tpu_torch.ops import fkvel
+    from wb_humanoid_mpc_tpu_torch.parallel.dryrun import sharded_sqp_case
+
+    out = []
+    for case in cases:
+        caps = {}
+        restore = _capture_last_launch(fkvel, "fkvel_cuda", caps, lambda model, q, v: q.shape[0])
+        try:
+            r = sharded_sqp_case(**case)
+        finally:
+            restore()
+        r["k2_last"] = {} if r["coords"] != (0, 0) else {
+            rows: ([a.cpu().numpy() for a in args[1:]],
+                   [t.cpu().numpy() for t in list(got[0]) + list(got[1])])
+            for rows, (args, _, got) in caps.items()}
+        out.append(r)
+    return out
+
+
+def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> dict:
+    """The 2-D (batch x horizon) sharded SQP, the port's `dryrun_multichip`:
+    humanoid23 at N = 28, the walking schedule, B = 2 n_dp instances, 2 SQP
+    iterations, f32 and f64, on the meshes of SHARDED_MESHES (`nccl` for the
+    single rank; `gloo` for several ranks on the one card, as NCCL refuses
+    two ranks on one GPU). Every rank's whole solution against
+    `make_batched_solver` on the card (SHARDED_GATE and the tighter
+    SHARDED_LIMIT, the same steps), K2's
+    launches per rank per iteration against the plan, the wall time of an
+    iteration (f32) and the collectives an iteration; K2's last launch at
+    each of the path's row counts on the 1x1 and 2x4 meshes against its plain
+    version. Adds K2's sharded rows."""
+    from wb_humanoid_mpc_tpu_torch.interface import ASSETS, load_wb_model
+    from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+    from wb_humanoid_mpc_tpu_torch.parallel.dryrun import walking_problem
+    from wb_humanoid_mpc_tpu_torch.parallel.multihost import run_ranks
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig
+
+    robot = load_wb_model(ASSETS / "humanoid23")[1].robot
+    refs = {}
+    for B in sorted({2 * n_dp for _, n_dp, _, _ in SHARDED_MESHES}):
+        for dt in SHARDED_GATE:
+            pb, *inputs = walking_problem("humanoid23", N_NODES, B, device=device,
+                                          dtype=getattr(torch, dt))
+            cfg = SqpSolverConfig(n_nodes=N_NODES, dt=pb.cfg.sqp.dt, sqp_iterations=SHARDED_ITERS)
+            sol = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg,
+                                      device=device)(0.0, *inputs)
+            refs[(B, dt)] = (sol.traj.xs.cpu().numpy(), sol.step_size.cpu().numpy())
+
+    report, k2_rows = {}, []
+    for label, n_dp, n_h, backend in SHARDED_MESHES:
+        world, B = n_dp * n_h, 2 * n_dp
+        cases = [dict(robot="humanoid23", n_nodes=N_NODES, batch=B, n_dp=n_dp, n_h=n_h,
+                      backend=backend, device=device, dtype=dt, iterations=SHARDED_ITERS,
+                      timed_solves=2 if dt == "float32" else 0) for dt in SHARDED_GATE]
+        t0 = time.perf_counter()
+        ranks = run_ranks(sharded_rank, world, backend, device, cases, timeout_s=900.0)
+        wall = time.perf_counter() - t0
+        for k, dt in enumerate(SHARDED_GATE):
+            outs = [r[k] for r in ranks]
+            o = next(r for r in outs if r["coords"] == (0, 0))
+            what = f"sharded {label} ({backend}) {dt}"
+            for r in outs:
+                for key in ("xs", "us", "cost", "step_size"):
+                    if not np.array_equal(r[key], o[key]):
+                        raise AssertionError(f"{what}: rank {r['coords']} returned another {key}")
+                if r["k2_launches"] != K2_PER_SHARDED_ITERATION * SHARDED_ITERS:
+                    raise AssertionError(f"{what}: rank {r['coords']} launched K2 "
+                                         f"{r['k2_launches']} times in {SHARDED_ITERS} "
+                                         f"iterations, the plan says "
+                                         f"{K2_PER_SHARDED_ITERATION} an iteration")
+            if not (np.isfinite(o["xs"]).all() and np.isfinite(o["cost"]).all()):
+                raise AssertionError(f"{what}: non-finite result")
+            ref_xs, ref_steps = refs[(B, dt)]
+            err = float(np.abs(o["xs"] - ref_xs).max())
+            limit = SHARDED_LIMIT[dt] * max(1.0, float(np.abs(ref_xs).max()))
+            if not err < min(SHARDED_GATE[dt], limit):
+                raise AssertionError(f"{what}: max |dxs| vs make_batched_solver {err:.3e}, "
+                                     f"gate {SHARDED_GATE[dt]}, limit {limit:.3e}")
+            if not np.array_equal(o["step_size"], ref_steps):
+                raise AssertionError(f"{what}: steps {o['step_size']}, batched {ref_steps}")
+            coll = {c: (n - 2 * (c == "all_gather")) / SHARDED_ITERS
+                    for c, n in o["collectives"].items()}
+            ms = [r["ms_per_iteration"] for r in outs]
+            report[f"{label} {dt}"] = dict(
+                backend=backend, ranks=world, batch=B, max_abs_dxs=err, dxs_limit=limit,
+                steps=o["step_size"].tolist(), k2_per_rank=o["k2_launches"],
+                collectives_per_iteration=coll, first_solve_s=max(r["first_s"] for r in outs),
+                ms_per_iteration=None if ms[0] is None else max(ms),
+                ms_per_iteration_rank0=o["ms_per_iteration"], spawn_and_run_s=wall)
+            print(f"sharded {label} {backend} {dt}: {world} rank(s), B = {B}; max|dxs| vs "
+                  f"make_batched_solver {err:.3e} (gate {SHARDED_GATE[dt]}, limit "
+                  f"{limit:.3e}); steps "
+                  f"{o['step_size'].tolist()} (batched the same); K2 "
+                  f"{o['k2_launches']} launches on every rank in {SHARDED_ITERS} iterations; "
+                  f"collectives per iteration on each rank {coll} (+2 all_gather at the end); "
+                  f"first solve {report[f'{label} {dt}']['first_solve_s']:.2f} s"
+                  + ("" if ms[0] is None else
+                     f"; {max(ms):.2f} ms per sharded SQP iteration (slowest rank; rank 0 "
+                     f"{o['ms_per_iteration']:.2f})") + f"; spawn + run {wall:.1f} s | {card}")
+            if dt != "float32" or label not in ("1x1", "2x4"):
+                continue
+            # K2 at this mesh's row counts: the path's last launch of each size
+            for n_rows, (args, got) in sorted(o["k2_last"].items()):
+                q, v = (torch.as_tensor(a, device=device) for a in args)
+                got = [torch.as_tensor(a, device=device) for a in got]
+                fk_p, vb_p = fkvel.fkvel_plain(robot, q, v)
+                torch.cuda.synchronize()
+                err = max_err(got, list(fk_p) + list(vb_p), what=f"K2 sharded {label} "
+                              f"rows={n_rows}", **K2_TOL)
+                t_dev = kernel_device_ms(lambda: fkvel.fkvel_cuda(robot, q, v), 20)
+                t_p = cuda_time_ms(lambda: fkvel.fkvel_plain(robot, q, v), 3, warmup=1)
+                nbytes, ops = fkvel_work(n_rows, robot.n_joints, q.element_size())
+                b_ms, b_by = bound_ms(nbytes, ops)
+                launches = o["flow_batch_calls"][n_rows]
+                k2_rows.append(dict(name=f"fkvel sharded {label} rows={n_rows}", route="cuda",
+                                    source="wb_humanoid_mpc_tpu_torch/csrc/fkvel.cu",
+                                    replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
+                                    launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                print(f"K2 fkvel sharded {label} rows={n_rows} (rank 0's last launch of that "
+                      f"size, {launches} of its launches): max|kernel-plain| {err:.3e}; kernel "
+                      f"{t_dev * 1e3:.2f} us on the device; plain {t_p * 1e3:.1f} us per call; "
+                      f"bound {b_ms * 1e3:.4f} us ({b_by}), {100 * b_ms / t_dev:.2f} % of it "
+                      f"| {card}")
+    if not k2_rows:
+        raise AssertionError("sharded: no K2 launch was kept")
+    rows["fkvel_sharded"] = k2_rows
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1185,11 +1338,16 @@ def main() -> int:
     batched = batched_phase(torch, riccati, fkvel, card, rows)
     print(json.dumps({"batched": batched, "card": card}))
 
+    # ---- 12. the 2-D sharded solve on rank meshes ----
+    sharded = sharded_phase(torch, fkvel, card, rows)
+    print(json.dumps({"sharded": sharded, "card": card}))
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
     kernels = [{k: r[k] for k in keys if k in r}
                for r in (rows["riccati"], rows["fkvel"], rows["rollout"],
-                         *rows["riccati_batched"], *rows["fkvel_batched"])]
+                         *rows["riccati_batched"], *rows["fkvel_batched"],
+                         *rows["fkvel_sharded"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

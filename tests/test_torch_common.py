@@ -367,3 +367,141 @@ def check_loop_case(pair: LoopPair, case: str) -> None:
         err = float(np.abs(np.asarray(a, np.float64) - b).max())
         assert err <= limit, f"{what} {name}: {err:.3e} > {limit:.3e}"
     assert gs.step_size == float(rs.step_size), what
+
+
+# ---- the 2-D sharded solve (tests/test_torch_sharded_sqp*.py) ----
+
+SHARDED_N, SHARDED_B, SHARDED_ITERS = 14, 4, 2   # walking, two swing phases; pads h = 2
+SHARDED_TIMEOUT_S = 300.0
+SHARDED_TOL = 1e-8          # x max(1, max|ref|): the port against JAX on one mesh shape
+# JAX's own sharded-vs-vmapped tolerance (tests/test_sharded_sqp.py)
+VS_BATCHED_TOL = {"xs": dict(rtol=1e-4, atol=1e-6), "us": dict(rtol=1e-4, atol=1e-5)}
+
+
+def sharded_case(n_dp: int, n_h: int) -> dict:
+    """Arguments of `dryrun.sharded_sqp_case` for the toy_biped walk, f64 on the CPU."""
+    return dict(robot="toy_biped", n_nodes=SHARDED_N, batch=SHARDED_B, n_dp=n_dp, n_h=n_h,
+                backend="gloo", device="cpu", dtype="float64", iterations=SHARDED_ITERS)
+
+
+def _jax_walk():
+    """(cfg, ocp, flow, x0s, warm start, params, multipliers) of JAX for the
+    toy_biped walk of `dryrun.walking_problem`: B = SHARDED_B instances from
+    x0 + SPREAD N(0, 1) (seed 0), every node of the warm start at x0."""
+    from wb_humanoid_mpc_tpu.ocp.params import weight_comp_input
+    from wb_humanoid_mpc_tpu.ocp.wb_ocp import make_wb_node_params
+    from wb_humanoid_mpc_tpu.refs.swing import SwingReference
+    from wb_humanoid_mpc_tpu.solver.transcription import Trajectory
+    from wb_humanoid_mpc_tpu_torch.parallel.dryrun import SPREAD
+
+    N, B = SHARDED_N, SHARDED_B
+    cfg, model, ocp = jax_wb("toy_biped")
+    ref = port_interface.walking_reference(N)
+    swing = SwingReference(contact_flags=ref.contact_flags, z_pos=ref.z_pos, z_vel=ref.z_vel,
+                           z_acc=ref.z_acc, proximity=ref.proximity)
+    x0 = jnp.asarray(cfg.initial_state, dtype=jnp.float64)
+    params = make_wb_node_params(ocp, swing, jnp.tile(x0, (N + 1, 1)))
+    u0 = weight_comp_input(model.robot.total_mass, model.robot.gravity, jnp.ones(2),
+                           model.layout.input_dim)
+    noise = np.random.default_rng(0).standard_normal((B, x0.shape[0])) * SPREAD
+    return (cfg, ocp, model.flow_map, x0 + jnp.asarray(noise),
+            Trajectory(xs=jnp.tile(x0, (B, N + 1, 1)), us=jnp.tile(u0, (B, N, 1))),
+            jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), params),
+            jnp.zeros((B, N, ocp.n_eq)))
+
+
+def _jax_fields(sol) -> dict:
+    return dict(zip(("xs", "us", "lam", "cost", "g_norm", "defect_norm", "step_size"),
+                    to_numpy((sol.traj.xs, sol.traj.us, sol.lam, sol.cost, sol.g_norm,
+                              sol.defect_norm, sol.step_size))))
+
+
+def jax_sharded(n_dp: int, n_h: int) -> dict:
+    """JAX's `make_sharded_sqp_solver` on the same walk, on an n_dp x n_h mesh
+    of virtual CPU devices, as numpy."""
+    from jax.sharding import Mesh
+
+    from wb_humanoid_mpc_tpu.solver.sharded_sqp import make_sharded_sqp_solver
+    from wb_humanoid_mpc_tpu.solver.sqp import SqpSolverConfig
+
+    cfg, ocp, flow, *inputs = _jax_walk()
+    mesh = Mesh(np.array(jax.devices()[:n_dp * n_h]).reshape(n_dp, n_h), ("dp", "h"))
+    solve = make_sharded_sqp_solver(ocp, flow, ocp.barrier_params(),
+                                    SqpSolverConfig(n_nodes=SHARDED_N, dt=cfg.sqp.dt,
+                                                    sqp_iterations=SHARDED_ITERS), mesh)
+    return _jax_fields(solve(0.0, *inputs))
+
+
+def jax_shard_batched(n_dp: int) -> dict:
+    """JAX's `shard_batched_solver` on the same walk, the batch laid over the
+    "dp" axis of a mesh of n_dp virtual CPU devices, as numpy."""
+    from jax.sharding import Mesh
+
+    from wb_humanoid_mpc_tpu.parallel.batched import shard_batched_solver
+    from wb_humanoid_mpc_tpu.solver.sqp import SqpSolverConfig
+
+    cfg, ocp, flow, *inputs = _jax_walk()
+    mesh = Mesh(np.array(jax.devices()[:n_dp]), ("dp",))
+    solve, shard = shard_batched_solver(ocp, flow, ocp.barrier_params(),
+                                        SqpSolverConfig(n_nodes=SHARDED_N, dt=cfg.sqp.dt,
+                                                        sqp_iterations=SHARDED_ITERS), mesh)
+    return _jax_fields(solve(0.0, *shard(tuple(inputs))))
+
+
+def port_batched_walk() -> dict:
+    """The port's `make_batched_solver` on the same walk (f64, CPU), as numpy."""
+    from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+    from wb_humanoid_mpc_tpu_torch.parallel.dryrun import walking_problem
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig
+
+    pb, *inputs = walking_problem("toy_biped", SHARDED_N, SHARDED_B, device="cpu",
+                                  dtype=torch.float64)
+    solve = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp,
+                                SqpSolverConfig(n_nodes=SHARDED_N, dt=pb.cfg.sqp.dt,
+                                                sqp_iterations=SHARDED_ITERS), device="cpu")
+    sol = solve(0.0, *inputs)
+    return dict(zip(("xs", "us", "lam", "cost", "g_norm", "defect_norm", "step_size"),
+                    to_numpy((sol.traj.xs, sol.traj.us, sol.lam, sol.cost, sol.g_norm,
+                              sol.defect_norm, sol.step_size))))
+
+
+def assert_fields_close(got: dict, ref: dict, fields, tol: float, what: str) -> None:
+    """Each field within tol x max(1, max|ref|); the same steps."""
+    for name in fields:
+        b = np.asarray(ref[name], np.float64)
+        limit = tol * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(np.asarray(got[name], np.float64) - b).max())
+        assert err <= limit, f"{what} {name}: {err:.3e} > {limit:.3e}"
+    np.testing.assert_array_equal(got["step_size"], ref["step_size"], err_msg=what)
+
+
+def check_sharded_runs(runs: list, n_dp: int, n_h: int, jax_ref: dict, batched: dict) -> None:
+    """Every rank's `sharded_sqp_case` result on an n_dp x n_h mesh: the whole
+    solution, the same on every rank; against JAX's sharded solve on the same
+    mesh shape at SHARDED_TOL and against the port's batched solve at JAX's
+    sharded-vs-vmapped tolerance, the same steps; `flow_batch` called 9 times
+    an SQP iteration (3 for the RK4 tail, 3 for the 8-step sweep over steps x
+    rows x local nodes, 3 for the final merit) and the collectives of the
+    design (6 gathers and 5 reductions an iteration, 2 gathers at the end)."""
+    N, B, it = SHARDED_N, SHARDED_B, SHARDED_ITERS
+    K = -(-(N + 1) // n_h)
+    rows = B // n_dp * K
+    assert sorted(r["coords"] for r in runs) == [(i, j) for i in range(n_dp) for j in range(n_h)]
+    first = runs[0]
+    assert first["xs"].shape == (B, N + 1, first["xs"].shape[-1])
+    assert first["us"].shape[:2] == (B, N)
+    for r in runs[1:]:
+        for k in ("xs", "us", "cost", "g_norm", "defect_norm", "step_size"):
+            np.testing.assert_array_equal(r[k], first[k], err_msg=f"rank {r['coords']} {k}")
+    for r in runs:
+        assert r["flow_batch_calls"] == {rows: 6 * it, 8 * rows: 3 * it}, r["flow_batch_calls"]
+        assert r["collectives"] == {"all_gather": 6 * it + 2, "all_reduce": 5 * it}
+        assert r["report"]["axes"] == {"dp": n_dp, "h": n_h}
+    what = f"sharded {n_dp}x{n_h}"
+    assert_fields_close(first, jax_ref, ("xs", "us", "cost", "g_norm", "defect_norm"),
+                        SHARDED_TOL, f"{what} vs JAX's sharded solve")
+    for name, tol in VS_BATCHED_TOL.items():
+        np.testing.assert_allclose(first[name], batched[name], **tol,
+                                   err_msg=f"{what} vs make_batched_solver")
+    np.testing.assert_array_equal(first["step_size"], batched["step_size"])
+    assert np.isfinite(first["cost"]).all()

@@ -376,3 +376,40 @@ def test_mrt_pipeline_on_the_card(card):
     assert pipe._thread is None
     assert not pipe.failed and pipe.solve_count >= 1
     assert np.isfinite(np.asarray(taus)).all()
+
+
+def test_sharded_solve_on_the_card(card):
+    """A 1 x 2 `gloo` sharded solve on the card (`make_sharded_sqp_solver`,
+    humanoid23 walk, N = 6, B = 2, two SQP iterations, f32 and f64, both
+    ranks on this card, one spawn): every rank's whole solution against
+    `make_batched_solver` on the card (`dryrun_multichip`'s gates: max |dxs|
+    below 2e-2 in f32, 1e-4 in f64) and against the same sharded solve on
+    K2's plain twin (2e-3 / 1e-9 x max(1, max|ref|)), the same steps; K2
+    launched 9 times an SQP iteration on each rank, never by the twin."""
+    from wb_humanoid_mpc_tpu_torch.parallel import dryrun
+    from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+    from wb_humanoid_mpc_tpu_torch.parallel.multihost import run_ranks
+
+    N, B, iters = 6, 2, 2
+    dtypes = {"float32": (2e-2, 2e-3), "float64": (1e-4, 1e-9)}
+    cases = [(dryrun.sharded_sqp_case, dict(robot="humanoid23", n_nodes=N, batch=B, n_dp=1,
+                                            n_h=2, backend="gloo", device="cuda", dtype=dt,
+                                            iterations=iters, flow_backend=fb))
+             for dt in dtypes for fb in ("auto", "plain")]
+    ranks = run_ranks(dryrun.run_cases, 2, "gloo", "cuda", cases, timeout_s=600.0)
+    for k, (dt, (gate, tol)) in enumerate(dtypes.items()):
+        pb, *inputs = dryrun.walking_problem("humanoid23", N, B, device=card,
+                                             dtype=getattr(torch, dt))
+        ref = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp,
+                                  SqpSolverConfig(n_nodes=N, dt=pb.cfg.sqp.dt,
+                                                  sqp_iterations=iters), device=card)(0.0, *inputs)
+        ref_xs = ref.traj.xs.cpu().numpy()
+        for rank in ranks:
+            got, twin = rank[2 * k], rank[2 * k + 1]
+            assert got["k2_launches"] == 9 * iters and twin["k2_launches"] == 0
+            assert float(np.abs(got["xs"] - ref_xs).max()) < gate, dt
+            np.testing.assert_array_equal(got["step_size"], ref.step_size.cpu().numpy())
+            for name in ("xs", "us"):
+                scale = max(1.0, float(np.abs(twin[name]).max()))
+                assert float(np.abs(got[name] - twin[name]).max()) <= tol * scale, (dt, name)
+            np.testing.assert_array_equal(got["step_size"], twin["step_size"])

@@ -25,9 +25,13 @@ from wb_humanoid_mpc_tpu_torch.mpc.controller import CentroidalMrtController, WB
 from wb_humanoid_mpc_tpu_torch.mpc.runtime import MpcRuntime
 from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import NodeParams
 from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati, rollout
-from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+from wb_humanoid_mpc_tpu_torch.parallel import dryrun
+from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver, shard_batched_solver
+from wb_humanoid_mpc_tpu_torch.parallel.horizon import horizon_sharded_lq_solve
+from wb_humanoid_mpc_tpu_torch.parallel.multihost import make_mpc_mesh, run_ranks
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
+from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import make_sharded_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     SqpSolverConfig,
     make_sqp_solver,
@@ -63,6 +67,12 @@ def test_port_imports_no_jax():
             "wb_humanoid_mpc_tpu_torch.mpc.async_runtime",
             "wb_humanoid_mpc_tpu_torch.parallel.batched",
             "wb_humanoid_mpc_tpu_torch.parallel.scaling"} <= set(mods)
+    # the multi-device layer
+    assert {"wb_humanoid_mpc_tpu_torch.parallel.collectives",
+            "wb_humanoid_mpc_tpu_torch.parallel.multihost",
+            "wb_humanoid_mpc_tpu_torch.parallel.horizon",
+            "wb_humanoid_mpc_tpu_torch.parallel.dryrun",
+            "wb_humanoid_mpc_tpu_torch.solver.sharded_sqp"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from wb_humanoid_mpc_tpu_torch.ops import _lib\n"
@@ -114,6 +124,13 @@ ENTRY_POINTS = {
     "make_batched_solver": lambda pb: make_batched_solver(
         pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)),
     "batched_throughput": lambda pb: batched_throughput(2, n_nodes=3),
+    "make_sharded_sqp_solver": lambda pb: make_sharded_sqp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt), None),
+    "horizon_sharded_lq_solve": lambda pb: horizon_sharded_lq_solve(*_cpu_lq(), None),
+    "shard_batched_solver": lambda pb: shard_batched_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt), None),
+    "make_mpc_mesh": lambda pb: make_mpc_mesh(1, 1, backend="gloo"),
+    "run_ranks": lambda pb: run_ranks(dryrun.run_cases, 1, "gloo"),
 }
 
 
@@ -129,7 +146,11 @@ def test_entry_point_defaults_to_the_card(entry, toy_problem, no_card):
           "MpcRuntime": MpcRuntime, "CentroidalMrtController": CentroidalMrtController,
           "WBMrtController": WBMrtController, "MrtPipeline": MrtPipeline,
           "make_batched_solver": make_batched_solver,
-          "batched_throughput": batched_throughput}[entry]
+          "batched_throughput": batched_throughput,
+          "make_sharded_sqp_solver": make_sharded_sqp_solver,
+          "horizon_sharded_lq_solve": horizon_sharded_lq_solve,
+          "shard_batched_solver": shard_batched_solver, "make_mpc_mesh": make_mpc_mesh,
+          "run_ranks": run_ranks}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](toy_problem)

@@ -10,14 +10,21 @@ nodes, one K1 launch with a block per instance, one K2 launch per flow stage
 over instances x nodes, and the filter ladder's lower steps tried once for
 the instances that accepted neither top step.
 
-`shard_batched_solver` (the batch laid across a device mesh) is not ported.
+`shard_batched_solver` lays the batch across the `dp` axis of a rank mesh
+(`parallel/multihost.py`): each dp-rank solves its rows with
+`make_batched_solver`, and one `all_gather` over `dp` gives every rank the
+whole solution. The solve is embarrassingly parallel over instances, so
+nothing else is communicated.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
+import torch
+
+from wb_humanoid_mpc_tpu_torch.parallel.collectives import all_gather, pack, unpack
+from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolution, SqpSolverConfig, make_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 
 
@@ -42,3 +49,44 @@ def make_batched_solver(ocp, flow, bp, cfg: SqpSolverConfig, *, device="cuda") -
         return solve(t0, x0, init_traj, params, lam)
 
     return solve_batched
+
+
+def _map(fn, tree):
+    """fn over the tensors of nested tuples / NamedTuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    parts = [_map(fn, t) for t in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def shard_batched_solver(ocp, flow, bp, cfg: SqpSolverConfig, mesh, axis: str = "dp", *,
+                         device="cuda") -> tuple[Callable, Callable]:
+    """Data-parallel batched solve over `mesh` along `axis`.
+
+    Returns (solve_fn, shard_fn): shard_fn(tree) takes this rank's rows of a
+    tree of tensors with a leading batch B (B a multiple of the axis size);
+    solve_fn(t0, x0 [B/n, nx], init_traj, params, lam), with the rows
+    shard_fn gave, solves them and returns the SqpSolution of all B
+    instances on every rank."""
+    solve = make_batched_solver(ocp, flow, bp, cfg, device=device)
+    group, n, i = mesh.group(axis), mesh.shape[axis], mesh.index(axis)
+
+    def shard_fn(tree):
+        def rows(a):
+            if a.shape[0] % n:
+                raise ValueError(f"shard_fn: batch {a.shape[0]} is not a multiple of {n}")
+            b = a.shape[0] // n
+            return a[i * b:(i + 1) * b]
+
+        return _map(rows, tree)
+
+    def solve_fn(t0, x0, init_traj: Trajectory, params, lam) -> SqpSolution:
+        sol = solve(t0, x0, init_traj, params, lam)
+        fields = [sol.traj.xs, sol.traj.us, sol.lam, sol.cost, sol.g_norm, sol.defect_norm,
+                  sol.step_size]
+        flat, tails = pack(fields, 1)
+        xs, us, lam_o, cost, g, dn, step = unpack(all_gather(flat, group), tails, 1)
+        return SqpSolution(traj=Trajectory(xs=xs, us=us), lam=lam_o, cost=cost, g_norm=g,
+                           defect_norm=dn, step_size=step, iterations=sol.iterations)
+
+    return solve_fn, shard_fn

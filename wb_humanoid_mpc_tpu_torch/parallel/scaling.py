@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `batched_throughput` and `scaling_report` in
 `wb_humanoid_mpc_tpu/parallel/scaling.py`: batched SQP iterations/s at
-increasing batch sizes on one device. The problem is `bench.py`'s stance
+increasing batch sizes, on one device or across the `dp` axis of a rank
+mesh (`shard_batched_solver`). The problem is `bench.py`'s stance
 problem built by `interface.build_wb_problem` on `assets/humanoid23`; each
 instance starts from its own perturbed x0.
 Errors are not caught: a batch that does not fit fails the report.
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from wb_humanoid_mpc_tpu_torch.interface import ASSETS, WBProblem, build_wb_problem
-from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
+from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver, shard_batched_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 
@@ -38,16 +39,27 @@ def batched_inputs(pb: WBProblem, batch: int, seed: int = 0, spread: float = 0.0
 
 
 def batched_throughput(batch: int, n_nodes: int = 28, n_rounds: int = 30, seed: int = 0, *,
-                       device="cuda", dtype=torch.float32) -> dict:
+                       device="cuda", dtype=torch.float32, mesh=None) -> dict:
     """Instances/s and SQP iterations/s of one batched solve of `batch`
     instances, one SQP iteration each: a first solve, then `n_rounds`
     warm-started rounds queued back to back with one synchronization at the
-    end (the MRT pipelining mode)."""
+    end (the MRT pipelining mode). With a rank `mesh`, every rank of it
+    calls this: the batch is split over its `dp` axis (`shard_batched_solver`)
+    and `devices` counts its ranks, as JAX's `len(jax.devices())`."""
     pb = build_wb_problem(ASSETS / "humanoid23", n_nodes, device=device, dtype=dtype)
     dev = pb.x0.device
     cfg = SqpSolverConfig(n_nodes=n_nodes, dt=pb.cfg.sqp.dt, sqp_iterations=1)
-    solve = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=dev)
     x0s, traj, params, lam = batched_inputs(pb, batch, seed)
+    if mesh is None:
+        solve = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=dev)
+    else:
+        sharded, shard = shard_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, mesh,
+                                              device=dev)
+        x0s = shard(x0s)
+
+        def solve(t0, x0, traj_, params_, lam_):
+            # the warm start comes back whole: each rank keeps its rows
+            return sharded(t0, x0, shard(traj_), shard(params_), shard(lam_))
 
     def sync():
         if dev.type == "cuda":
@@ -71,6 +83,7 @@ def batched_throughput(batch: int, n_nodes: int = 28, n_rounds: int = 30, seed: 
         "instances_per_s": batch / dt,
         "sqp_iterations_per_s": batch * cfg.sqp_iterations / dt,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+        "devices": 1 if mesh is None else mesh.size,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                               else None),
         "finite": bool(torch.isfinite(sol.cost).all()),

@@ -110,13 +110,16 @@ def _check_config(cfg: SqpSolverConfig) -> None:
                              f"{allowed}")
 
 
+def model_flow_batch(ocp, cfg: SqpSolverConfig):
+    """The model's `flow_map_batch` with `cfg.flow_backend` (K2 for CUDA
+    tensors), or None when the model has none."""
+    fmb = getattr(getattr(ocp, "model", None), "flow_map_batch", None)
+    return None if fmb is None else (lambda ts, xs, us: fmb(ts, xs, us, backend=cfg.flow_backend))
+
+
 def _lq_functions(ocp, flow, bp, cfg):
-    model = getattr(ocp, "model", None)
-    fmb = getattr(model, "flow_map_batch", None)
-    flow_batch = (None if fmb is None
-                  else (lambda ts, xs, us: fmb(ts, xs, us, backend=cfg.flow_backend)))
     return make_lq_functions(ocp, flow, cfg.dt, cfg.n_nodes, bp, sensitivity=cfg.sensitivity,
-                             flow_batch=flow_batch)
+                             flow_batch=model_flow_batch(ocp, cfg))
 
 
 def _rho_lq(cfg: SqpSolverConfig) -> float:

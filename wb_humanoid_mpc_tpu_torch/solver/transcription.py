@@ -232,6 +232,26 @@ def _last(params, nb: int):
     return type(params)(*(a[(slice(None),) * nb + (-1,)] for a in params))
 
 
+def flat_flow(flow_batch) -> Callable:
+    """flow_batch(ts [B], xs [B, nx], us [B, nu]) over xs/us with any leading
+    dims, flattened into one batch (one call, e.g. one K2 launch)."""
+    def fb(ts, xs, us):
+        shape = xs.shape
+        out = flow_batch(ts.expand(shape[:-1]).reshape(-1), xs.reshape(-1, shape[-1]),
+                         us.reshape(-1, us.shape[-1]))
+        return out.reshape(shape)
+
+    return fb
+
+
+def batched_rk4_tail(fb, dt: float, times, xs, us, k1):
+    """Finish RK4 from k1 at the batched level (3 calls of `fb`)."""
+    k2 = fb(times + 0.5 * dt, xs + 0.5 * dt * k1, us)
+    k3 = fb(times + 0.5 * dt, xs + 0.5 * dt * k2, us)
+    k4 = fb(times + dt, xs + dt * k3, us)
+    return xs + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
 class LQFunctions(NamedTuple):
     """The closures of `make_lq_functions`, in JAX's order."""
     lq_approximation: Callable
@@ -263,23 +283,11 @@ def make_lq_functions(ocp, flow, dt: float, N: int, bp: BarrierParams,
     instance and node in one call; the default is the batched `flow`, which
     is mathematically identical.
     """
-    if flow_batch is None:
-        flow_batch = flow
+    fb = flat_flow(flow if flow_batch is None else flow_batch)
     node_lq = make_node_lq(ocp, flow, dt, bp, sensitivity)
 
-    def fb(ts, xs, us):
-        """flow_batch over xs/us with any leading dims, flattened into one batch."""
-        shape = xs.shape
-        out = flow_batch(ts.expand(shape[:-1]).reshape(-1), xs.reshape(-1, shape[-1]),
-                         us.reshape(-1, us.shape[-1]))
-        return out.reshape(shape)
-
     def rk4_tail(times_s, xs_s, us, k1):
-        """Finish RK4 from k1 at the batched level (3 flow_batch calls)."""
-        k2 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k1, us)
-        k3 = fb(times_s + 0.5 * dt, xs_s + 0.5 * dt * k2, us)
-        k4 = fb(times_s + dt, xs_s + dt * k3, us)
-        return xs_s + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+        return batched_rk4_tail(fb, dt, times_s, xs_s, us, k1)
 
     def terminal(traj, times, params):
         nb = times.dim() - 1
