@@ -29,7 +29,14 @@ rows), the stance setup of `bench.py`, in float32:
   the walking schedule, 2 SQP iterations, f32 and f64, on a 1x1 mesh
   (`nccl`) and on 1x4 and 2x4 meshes of `gloo` ranks on this one card
   (`parallel/multihost.py::run_ranks`), against `make_batched_solver`, and
-  K2 at the sharded path's row counts.
+  K2 at the sharded path's row counts;
+- the launch CLI in-process, as a user runs it: `dummy-sim --formulation wb`
+  (1.0 s at 50 / 25 Hz, `--log-csv`) and `bench-batched --batch 8`;
+- where the machine has `mujoco` (found by `importlib.util.find_spec`), the
+  MuJoCo physics loop on humanoid23's MJCF: `run_mujoco_closed_loop`
+  synchronous for both formulations and with a 12 ms solve latency
+  (centroidal), and the three-thread `run_threaded_robot_sim`; without
+  mujoco it prints a line that says so and runs none of it.
 
 Each path checks that its kernels were launched as the configuration
 implies, that the result is finite and that it agrees with the plain
@@ -42,6 +49,7 @@ grid). Without a CUDA card it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -961,6 +969,295 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
     return report
 
 
+MUJOCO_Z_REF = 0.78321                # humanoid23's defaultBaseHeight
+MUJOCO_GATES = dict(min_height=0.75 * MUJOCO_Z_REF, max_drift=0.25)   # tests/test_mujoco_loop.py
+NO_MUJOCO = ("this machine has no mujoco, so the MuJoCo loop was held on the CPU tier only "
+             "(tests/test_torch_mujoco_sim.py, tests/test_torch_sim_thread.py)")
+
+
+def _expect_launches(what: str, form: str, k1: int, k2: int, n_it: int) -> None:
+    """K1 once per SQP iteration; K2 6 to 9 times per iteration whole-body,
+    never centroidal."""
+    if k1 != n_it:
+        raise AssertionError(f"{what}: K1 launched {k1} times in {n_it} SQP iterations")
+    lo, hi = (6 * n_it, 9 * n_it) if form == "wb" else (0, 0)
+    if not lo <= k2 <= hi:
+        raise AssertionError(f"{what}: K2 launched {k2} times in {n_it} SQP iterations, "
+                             f"expected {lo}..{hi}")
+
+
+def launch_phase(torch, riccati, fkvel, card: str) -> dict:
+    """The launch CLI, in-process, as a user runs it on the card (humanoid23,
+    f32, N = 28): `dummy-sim --formulation wb` for 1.0 s at 50 / 25 Hz with
+    `--log-csv`, then `bench-batched --batch 8 --rounds 2`. Each with the
+    launch counts set to 0 just before it: K1 once per SQP iteration, K2 6
+    to 9 times; finite states, one CSV row per tick under the JAX logger's
+    header. The dummy-sim's last K1 and K2 launches are held against the
+    plain versions on the same inputs."""
+    import tempfile
+
+    from wb_humanoid_mpc_tpu_torch.tools import launch
+    from wb_humanoid_mpc_tpu_torch.tools.observation_logger import ObservationLogger
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "observations.csv")
+        caps = {}
+        restores = [_capture_last_launch(riccati, "riccati_rollout_cuda", caps, "K1"),
+                    _capture_last_launch(fkvel, "fkvel_cuda", caps, "K2")]
+        for mod in (riccati, fkvel):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = launch.main(["dummy-sim", "--formulation", "wb", "--duration", "1.0",
+                               "--mrt-freq", "50", "--mpc-freq", "25", "--n-nodes",
+                               str(N_NODES), "--log-csv", csv_path])
+            torch.cuda.synchronize()
+        finally:
+            for restore in restores:
+                restore()
+        wall = time.perf_counter() - t0
+        k1, k2 = riccati.LAUNCHES, fkvel.LAUNCHES
+        log = res["log"]
+        n_it = sum(s.iterations for s in log.solve_stats)
+        _expect_launches("launch dummy-sim", "wb", k1, k2, n_it)
+        if not np.isfinite(log.states).all():
+            raise AssertionError("launch dummy-sim: non-finite state")
+        header, data = ObservationLogger.load_csv(csv_path)
+        nx, nu = log.states.shape[1], log.inputs.shape[1]
+        want = (["time", "mode"] + [f"state_{i}" for i in range(nx)]
+                + [f"input_{i}" for i in range(nu)])
+        if header != want or data.shape != (len(log.times), len(want)):
+            raise AssertionError(f"launch dummy-sim: CSV {data.shape} with header "
+                                 f"{header[:3]}..., expected {len(log.times)} rows of "
+                                 f"{want[:3]}...")
+        args, kwargs, got = caps["K1"]
+        e1 = max_err(got, riccati.riccati_rollout_plain(*args, **kwargs),
+                     what="launch dummy-sim K1 (last launch)", **K1_TOL)
+        args, kwargs, got = caps["K2"]
+        fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
+        e2 = max_err(list(got[0]) + list(got[1]), list(fk_p) + list(vb_p),
+                     what="launch dummy-sim K2 (last launch)", **K2_TOL)
+    summary = res["summary"]
+    out["dummy-sim"] = dict(summary=summary, ticks=len(log.times), wall_s=wall,
+                            ticks_per_s=len(log.times) / wall, sqp_iterations=n_it,
+                            launches={"K1": k1, "K2": k2}, k1_last_vs_plain=e1,
+                            k2_last_vs_plain=e2, final_base_xy=res["final_base_xy"])
+    print(f"launch dummy-sim wb: BenchmarksPublisher summary {json.dumps(summary)}")
+    print(f"launch dummy-sim wb: {len(log.times)} ticks (CSV rows) in {wall:.2f} s, "
+          f"{len(log.times) / wall:.3f} ticks/s of wall time; launches in {n_it} SQP "
+          f"iterations K1 {k1} K2 {k2}; last K1 vs plain {e1:.3e}, last K2 vs plain {e2:.3e} "
+          f"| {card}")
+
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    res = launch.main(["bench-batched", "--batch", "8", "--rounds", "2", "--n-nodes",
+                       str(N_NODES)])
+    torch.cuda.synchronize()
+    k1, k2 = riccati.LAUNCHES, fkvel.LAUNCHES
+    _expect_launches("launch bench-batched", "wb", k1, k2, 3)   # 1 + 2 rounds, 1 iteration each
+    if not res["finite"]:
+        raise AssertionError("launch bench-batched: non-finite cost")
+    out["bench-batched"] = dict(res, launches={"K1": k1, "K2": k2})
+    print(f"launch bench-batched B=8: {res['instances_per_s']:.2f} instances/s, "
+          f"{res['round_time_s'] * 1e3:.2f} ms a batched iteration; launches in 3 batched "
+          f"iterations K1 {k1} K2 {k2} | {card}")
+    return out
+
+
+def _mujoco_sim(mpc, mjcf: str):
+    from wb_humanoid_mpc_tpu_torch.sim.mujoco_sim import MujocoSimInterface
+
+    lay, x0 = mpc.model.layout, mpc.initial_state
+    return MujocoSimInterface(
+        mjcf, initial_joint_positions=dict(zip(mpc.model.robot.joint_names,
+                                               map(float, lay.joint_angles(x0)))),
+        initial_base_pos=(0.0, 0.0, float(lay.base_position(x0)[2])))
+
+
+def _timed_controller(ctrl):
+    """Wrap ctrl.compute to record its host time and the age of the policy
+    it is given (sim time - the policy's t0)."""
+    orig = ctrl.compute
+    rec = {"ms": [], "age": []}
+
+    def compute(t, x, policy):
+        c0 = time.perf_counter()
+        a = orig(t, x, policy)
+        rec["ms"].append((time.perf_counter() - c0) * 1e3)
+        if policy is not None:
+            rec["age"].append(t - policy.t0)
+        return a
+
+    ctrl.compute = compute
+    return rec
+
+
+def mujoco_phase(torch, riccati, fkvel, card: str, device: str = "cuda") -> dict:
+    """The MuJoCo physics loop on humanoid23's MJCF (f32, N = 28), the solves
+    on the card: `run_mujoco_closed_loop` synchronous for both formulations
+    (1.0 s: 2 kHz physics, 500 Hz MRT, 25 Hz MPC), the first 3 solves held
+    against the same loop on the plain versions; the centroidal loop again
+    with `solve_latency = 0.012`; `run_threaded_robot_sim` (centroidal,
+    0.5 s at 250 Hz, faster than real time). Gates: no reset, base above
+    0.75 x 0.78321 m, horizontal drift under 0.25 m, finite costs; K1 once
+    per SQP iteration, K2 6 to 9 times (whole-body) or never (centroidal).
+    The threaded loop's resets, heights, policy ages and realtime factor are
+    reported, not gated."""
+    import threading
+
+    from wb_humanoid_mpc_tpu_torch.core.config import load_task_config
+    from wb_humanoid_mpc_tpu_torch.interface import (
+        ASSETS,
+        build_centroidal_mpc,
+        build_wb_mpc,
+        mpc_files,
+    )
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import (
+        CentroidalMrtController,
+        WBMrtController,
+    )
+    from wb_humanoid_mpc_tpu_torch.sim.closed_loop import run_mujoco_closed_loop
+    from wb_humanoid_mpc_tpu_torch.sim.sim_thread import run_threaded_robot_sim
+
+    mjcf = str(ASSETS / "humanoid23" / "humanoid23.xml")
+    classes = {"wb": (build_wb_mpc, WBMrtController),
+               "centroidal": (build_centroidal_mpc, CentroidalMrtController)}
+
+    def build(form, **overrides):
+        files = mpc_files(ASSETS / "humanoid23", form)
+        kw = dict(n_nodes=N_NODES)
+        if form == "wb":
+            kw["dt_override"] = load_task_config(files[1], "wb", 1, 1).sqp.dt
+        mpc = classes[form][0](*files, **kw, solver_overrides=overrides or None, device=device)
+        return mpc, classes[form][1](mpc.model, device=device)
+
+    def gate(what, log):
+        drift = float(np.abs(log.base_positions[-1, :2]).max())
+        if log.n_resets:
+            raise AssertionError(f"{what}: the robot fell ({log.n_resets} resets)")
+        if not log.base_heights.min() > MUJOCO_GATES["min_height"]:
+            raise AssertionError(f"{what}: base height {log.base_heights.min():.4f} m")
+        if not drift < MUJOCO_GATES["max_drift"]:
+            raise AssertionError(f"{what}: horizontal drift {drift:.4f} m")
+        if not all(np.isfinite(s.cost) for s in log.solve_stats):
+            raise AssertionError(f"{what}: non-finite cost")
+        return drift
+
+    def report(what, log, rec, wall, launches, n_it, drift):
+        solve_ms = np.array([s.solve_time for s in log.solve_stats]) * 1e3
+        sim_s = len(log.times) * (log.times[1] - log.times[0])
+        row = dict(solves=len(log.solve_stats), sqp_iterations=n_it, launches=launches,
+                   solve_ms_p50=float(np.percentile(solve_ms, 50)),
+                   solve_ms_p90=float(np.percentile(solve_ms, 90)),
+                   controller_ms_p50=float(np.percentile(rec["ms"], 50)),
+                   ticks=len(log.times), ticks_per_s=len(log.times) / wall,
+                   realtime_factor=sim_s / wall, resets=log.n_resets,
+                   height=[float(log.base_heights.min()), float(log.base_heights.max())],
+                   drift=drift)
+        print(f"{what}: {row['solves']} solves, {n_it} SQP iterations, launches {launches}; "
+              f"solve p50 {row['solve_ms_p50']:.2f} ms p90 {row['solve_ms_p90']:.2f} ms; "
+              f"controller p50 {row['controller_ms_p50']:.2f} ms; {row['ticks_per_s']:.3f} MRT "
+              f"ticks/s of wall time; realtime factor {row['realtime_factor']:.4f}; resets "
+              f"{log.n_resets}; base height {row['height'][0]:.4f}..{row['height'][1]:.4f} m; "
+              f"drift {drift:.4f} m | {card}")
+        return row
+
+    out = {}
+    runs = [("sync", "centroidal", 0.0), ("sync", "wb", 0.0), ("latency", "centroidal", 0.012)]
+    for mode, form, latency in runs:
+        mpc, ctrl = build(form)
+        # warm: one solve and one controller call (the first of a process are slow)
+        mpc.runtime.advance(0.0, mpc.initial_state, np.zeros(4))
+        ctrl.compute(0.0, mpc.initial_state, mpc.runtime.policy)
+        mpc.runtime.reset()
+        record = _recording(mpc.runtime, riccati, fkvel)
+        rec = _timed_controller(ctrl)
+        sim = _mujoco_sim(mpc, mjcf)
+        for mod in (riccati, fkvel):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        log = run_mujoco_closed_loop(mpc, ctrl, sim, 1.0, 500.0, 25.0,
+                                     command_fn=lambda t: np.zeros(4), solve_latency=latency)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
+        del mpc.runtime.advance   # the recording wrapper
+        what = f"mujoco {mode} {form}"
+        n_it = sum(r["stats"].iterations for r in record)
+        _expect_launches(what, form, launches["K1"], launches["K2"], n_it)
+        drift = gate(what, log)
+        row = report(what, log, rec, wall, launches, n_it, drift)
+        if mode == "sync":
+            # the first 3 solves against the same loop on the plain versions
+            pmpc, pctrl = build(form, rollout_backend="plain", flow_backend="plain")
+            precord = _recording(pmpc.runtime, riccati, fkvel)
+            run_mujoco_closed_loop(pmpc, pctrl, _mujoco_sim(pmpc, mjcf), 41 / 500.0, 500.0,
+                                   25.0, command_fn=lambda t: np.zeros(4))
+            errs = []
+            for k in range(3):
+                kr, pr = record[k], precord[k]
+                if pr["k1"] or pr["k2"]:
+                    raise AssertionError(f"{what}: the plain twin launched a kernel")
+                err = float(np.abs(kr["xs"] - pr["xs"]).max())
+                limit = SOLVE_TOL * max(1.0, float(np.abs(pr["xs"]).max()))
+                if not err <= limit:
+                    raise AssertionError(f"{what} solve {k}: kernels and plain versions "
+                                         f"disagree on xs: {err:.3e} > {limit:.3e}")
+                if kr["stats"].step_size != pr["stats"].step_size:
+                    raise AssertionError(f"{what} solve {k}: kernels took step "
+                                         f"{kr['stats'].step_size}, plain versions "
+                                         f"{pr['stats'].step_size}")
+                errs.append(err)
+            row["vs_plain_max_dxs"] = max(errs)
+            print(f"{what}: first 3 solves vs plain versions max|dxs| {max(errs):.3e} (limit "
+                  f"{SOLVE_TOL} x max(1, max|ref|)), the same steps")
+        out[f"{mode} {form}"] = row
+
+    # the three threads: physics, solver, control; reported, not gated
+    mpc, ctrl = build("centroidal")
+    mpc.runtime.advance(0.0, mpc.initial_state, np.zeros(4))
+    ctrl.compute(0.0, mpc.initial_state, mpc.runtime.policy)
+    mpc.runtime.reset()
+    rec = _timed_controller(ctrl)
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    log, metrics, _ = run_threaded_robot_sim(mpc, ctrl, _mujoco_sim(mpc, mjcf), 0.5, 250.0,
+                                             command_fn=lambda t: np.zeros(4), realtime=False)
+    wall = time.perf_counter() - t0
+    launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
+    alive = [t.name for t in threading.enumerate() if t.name in ("mujoco-sim", "mpc-solver")]
+    if not log.solve_stats or metrics.ticks <= 0 or alive:
+        raise AssertionError(f"mujoco threaded: {len(log.solve_stats)} policies, "
+                             f"{metrics.ticks} physics ticks, threads still alive {alive}")
+    # the thread may stop mid-solve and the control loop may miss a policy,
+    # so the counts are bounded, not matched to the solves
+    if launches["K1"] < 1 or launches["K2"] != 0:
+        raise AssertionError(f"mujoco threaded: launches {launches}")
+    ages = np.array(rec["age"]) * 1e3
+    solve_ms = np.array([s.solve_time for s in log.solve_stats]) * 1e3
+    row = dict(policies=len(log.solve_stats), launches=launches, ticks=len(log.times),
+               physics_ticks=metrics.ticks, resets=log.n_resets,
+               min_height=float(log.base_heights.min()),
+               policy_age_ms_p50=float(np.percentile(ages, 50)) if ages.size else None,
+               policy_age_ms_max=float(ages.max()) if ages.size else None,
+               solve_ms_p50=float(np.percentile(solve_ms, 50)),
+               controller_ms_p50=float(np.percentile(rec["ms"], 50)),
+               ticks_per_s=len(log.times) / wall, realtime_factor=0.5 / wall,
+               physics_realtime_factor=metrics.realtime_factor)
+    out["threaded centroidal"] = row
+    print(f"mujoco threaded centroidal (0.5 s at 250 Hz, not real time): {row['policies']} "
+          f"policies, launches {launches}; solve p50 {row['solve_ms_p50']:.2f} ms; controller "
+          f"p50 {row['controller_ms_p50']:.2f} ms; policy age p50 {row['policy_age_ms_p50']} ms "
+          f"max {row['policy_age_ms_max']} ms (sim time); {row['ticks_per_s']:.3f} MRT ticks/s "
+          f"of wall time; realtime factor {row['realtime_factor']:.4f} (physics thread's "
+          f"{metrics.realtime_factor:.4f}); resets {log.n_resets}; min base height "
+          f"{row['min_height']:.4f} m | {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1341,6 +1638,18 @@ def main() -> int:
     # ---- 12. the 2-D sharded solve on rank meshes ----
     sharded = sharded_phase(torch, fkvel, card, rows)
     print(json.dumps({"sharded": sharded, "card": card}))
+
+    # ---- 13. the launch CLI, as a user runs it ----
+    launched = launch_phase(torch, riccati, fkvel, card)
+    print(json.dumps({"launch": launched, "card": card}))
+
+    # ---- 14. the MuJoCo physics loop, where this machine has mujoco ----
+    if importlib.util.find_spec("mujoco") is None:
+        print(f"mujoco: {NO_MUJOCO}")
+        print(json.dumps({"mujoco": {"skipped": NO_MUJOCO}, "card": card}))
+    else:
+        physics = mujoco_phase(torch, riccati, fkvel, card)
+        print(json.dumps({"mujoco": physics, "card": card}))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launch_floor_ms")

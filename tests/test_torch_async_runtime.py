@@ -18,6 +18,7 @@ stops it in `finally`."""
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -148,9 +149,14 @@ def test_solver_failure_sets_failed(mpc, fault, monkeypatch):
     mpc.runtime.reset()
     orig = mpc.runtime.advance
     calls = []
+    # the second solve waits until the first policy has been checked, so a
+    # loaded machine cannot let it fail before the check
+    first_checked = threading.Event()
 
     def advance(*args, **kwargs):
         calls.append(args[0])
+        if len(calls) >= 2:
+            first_checked.wait(DEADLINE)
         stats = orig(*args, **kwargs)
         if len(calls) < 2:
             return stats
@@ -165,6 +171,7 @@ def test_solver_failure_sets_failed(mpc, fault, monkeypatch):
         x = np.asarray(mpc.initial_state, dtype=float)
         _drive(pipe, x, lambda p: p.solve_count >= 1)
         assert pipe.solve_count == 1 and pipe.get_policy() is not None
+        first_checked.set()
         _drive(pipe, x, lambda p: p.failed)
         assert pipe.failed
         assert pipe.get_policy() is None
@@ -174,6 +181,7 @@ def test_solver_failure_sets_failed(mpc, fault, monkeypatch):
         pipe._thread.join(timeout=DEADLINE)
         assert not pipe._thread.is_alive()
     finally:
+        first_checked.set()
         pipe.stop(timeout=DEADLINE)
 
 

@@ -505,3 +505,60 @@ def check_sharded_runs(runs: list, n_dp: int, n_h: int, jax_ref: dict, batched: 
                                    err_msg=f"{what} vs make_batched_solver")
     np.testing.assert_array_equal(first["step_size"], batched["step_size"])
     assert np.isfinite(first["cost"]).all()
+
+
+# ---- the MuJoCo closed loop (tests/test_torch_mujoco_sim*.py) ----
+
+MUJOCO_LOOP_TOL = 1e-9   # x max(1, max|ref|), per tick, f64
+MUJOCO_LOOP = dict(duration=0.2, mrt_frequency=100.0, mpc_frequency=25.0)
+MUJOCO_LATENCY = 0.012   # tests/test_mujoco_loop.py's solve latency
+
+
+def mujoco_run(mpc, sim_cls, ctrl, run, **kw):
+    """`run` (either package's `run_mujoco_closed_loop`) on toy_biped's MJCF
+    from the MPC's initial state, zero command."""
+    mpc.runtime.reset()
+    lay = mpc.model.layout
+    x0 = np.asarray(mpc.initial_state)
+    sim = sim_cls(str(ASSETS / "toy_biped" / "toy_biped.xml"),
+                  initial_joint_positions=dict(zip(mpc.model.robot.joint_names,
+                                                   map(float, lay.joint_angles(x0)))),
+                  initial_base_pos=(0.0, 0.0, float(lay.base_position(x0)[2])))
+    return run(mpc, ctrl, sim, **MUJOCO_LOOP, command_fn=lambda t: np.zeros(4), **kw)
+
+
+def check_mujoco_loop(formulation: str, pair, mode: str) -> None:
+    """The port's `run_mujoco_closed_loop` against JAX's on toy_biped, tick by
+    tick: base and joint positions within MUJOCO_LOOP_TOL x max(1,
+    max|ref|), the solves' cost and g_norm too, the same step sizes."""
+    from wb_humanoid_mpc_tpu.mpc import controller as jax_controller
+    from wb_humanoid_mpc_tpu.sim import closed_loop as jax_closed_loop
+    from wb_humanoid_mpc_tpu.sim import mujoco_sim as jax_mujoco_sim
+    from wb_humanoid_mpc_tpu_torch.mpc import controller
+    from wb_humanoid_mpc_tpu_torch.sim import closed_loop, mujoco_sim
+
+    jax_mpc, port_mpc = pair
+    name = "CentroidalMrtController" if formulation == "centroidal" else "WBMrtController"
+    jctrl = getattr(jax_controller, name)(jax_mpc.model)
+    pctrl = getattr(controller, name)(port_mpc.model, device="cpu", dtype=torch.float64)
+    kw = {} if mode == "sync" else dict(solve_latency=MUJOCO_LATENCY)
+    ref = mujoco_run(jax_mpc, jax_mujoco_sim.MujocoSimInterface, jctrl,
+                     jax_closed_loop.run_mujoco_closed_loop, **kw)
+    got = mujoco_run(port_mpc, mujoco_sim.MujocoSimInterface, pctrl,
+                     closed_loop.run_mujoco_closed_loop, **kw)
+    what = f"{formulation} {mode}"
+    assert got.n_resets == ref.n_resets == 0, what
+    np.testing.assert_array_equal(got.times, ref.times)
+    assert len(got.solve_stats) == len(ref.solve_stats) > 0, what
+    pairs = [("base_positions", got.base_positions, ref.base_positions),
+             ("joint_positions", got.joint_positions, ref.joint_positions)]
+    for name in ("cost", "g_norm"):
+        pairs.append((name, np.array([getattr(s, name) for s in got.solve_stats]),
+                      np.array([float(getattr(s, name)) for s in ref.solve_stats])))
+    for name, a, b in pairs:
+        limit = MUJOCO_LOOP_TOL * max(1.0, float(np.abs(b).max()))
+        err = np.abs(a - b).reshape(len(a), -1).max(axis=1)
+        assert err.max() <= limit, (f"{what} {name}: tick {int(err.argmax())} off by "
+                                    f"{err.max():.3e} > {limit:.3e}")
+    assert ([s.step_size for s in got.solve_stats]
+            == [float(s.step_size) for s in ref.solve_stats]), what

@@ -11,7 +11,9 @@ geometry: the kernel's own plan, the f64 (28, 58, 35) ring of 3 slots for
 in f32, the refusal of ranks without stages, inputs off 16-byte alignment,
 batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224. The
 closed loop of each formulation (`build_*_mpc` + `run_dummy_sim`, humanoid23
-at N = 6) runs through the kernels and against its plain twin. Needs an
+at N = 6) runs through the kernels and against its plain twin; the launch
+CLI's `dummy-sim` and, where the machine has mujoco, a short MuJoCo loop
+run on the card with their launch counts checked. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -413,3 +415,54 @@ def test_sharded_solve_on_the_card(card):
                 scale = max(1.0, float(np.abs(twin[name]).max()))
                 assert float(np.abs(got[name] - twin[name]).max()) <= tol * scale, (dt, name)
             np.testing.assert_array_equal(got["step_size"], twin["step_size"])
+
+
+def test_launch_dummy_sim_on_the_card(card, tmp_path):
+    """The launch CLI as a user runs it, on the card (humanoid23 whole-body,
+    N = 6, f32, 0.2 s at 50 / 25 Hz, `--log-csv`): K1 once per SQP
+    iteration, K2 6 to 9 times, finite states, one CSV row per tick."""
+    from wb_humanoid_mpc_tpu_torch.tools import launch
+    from wb_humanoid_mpc_tpu_torch.tools.observation_logger import ObservationLogger
+
+    csv_path = str(tmp_path / "obs.csv")
+    riccati.reset_launches()
+    fkvel.reset_launches()
+    out = launch.main(["dummy-sim", "--formulation", "wb", "--n-nodes", "6", "--duration",
+                       "0.2", "--mrt-freq", "50", "--mpc-freq", "25", "--log-csv", csv_path])
+    torch.cuda.synchronize()
+    log = out["log"]
+    n_iter = sum(s.iterations for s in log.solve_stats)
+    assert riccati.LAUNCHES == n_iter
+    assert 6 * n_iter <= fkvel.LAUNCHES <= 9 * n_iter
+    assert np.isfinite(log.states).all()
+    _, data = ObservationLogger.load_csv(csv_path)
+    assert data.shape[0] == len(log.times) == 10
+
+
+def test_mujoco_loop_on_the_card(card):
+    """`run_mujoco_closed_loop` on humanoid23's MJCF, whole-body, N = 6, f32,
+    0.3 s synchronous (500 Hz MRT, 25 Hz MPC), the solves on the card: no
+    reset, finite positions, K1 once per SQP iteration and K2 6 to 9 times.
+    Needs mujoco on the card's machine."""
+    pytest.importorskip("mujoco")
+    from wb_humanoid_mpc_tpu_torch.interface import build_wb_mpc, mpc_files
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import WBMrtController
+    from wb_humanoid_mpc_tpu_torch.sim.closed_loop import run_mujoco_closed_loop
+    from wb_humanoid_mpc_tpu_torch.sim.mujoco_sim import MujocoSimInterface
+
+    mpc = build_wb_mpc(*mpc_files(ASSETS / "humanoid23", "wb"), n_nodes=6, device=card)
+    lay, x0 = mpc.model.layout, mpc.initial_state
+    sim = MujocoSimInterface(str(ASSETS / "humanoid23" / "humanoid23.xml"),
+                             initial_joint_positions=dict(zip(mpc.model.robot.joint_names,
+                                                              map(float, lay.joint_angles(x0)))),
+                             initial_base_pos=(0.0, 0.0, float(lay.base_position(x0)[2])))
+    riccati.reset_launches()
+    fkvel.reset_launches()
+    log = run_mujoco_closed_loop(mpc, WBMrtController(mpc.model, device=card), sim, 0.3,
+                                 500.0, 25.0)
+    torch.cuda.synchronize()
+    assert log.n_resets == 0
+    assert np.isfinite(log.base_positions).all()
+    n_iter = sum(s.iterations for s in log.solve_stats)
+    assert riccati.LAUNCHES == n_iter
+    assert 6 * n_iter <= fkvel.LAUNCHES <= 9 * n_iter

@@ -115,3 +115,28 @@ def test_dispatch_on_cpu_is_plain():
     _, _, dxs_p, dus_p = _port(data, "f64", 1e-8, backend="plain")
     assert torch.equal(dxs_a, dxs_p) and torch.equal(dus_a, dus_p)
     assert riccati.LAUNCHES == before
+
+
+@pytest.mark.parametrize("pass_", ["sequential", "parallel"])
+def test_non_positive_definite_stage_gives_nan_as_jax(pass_):
+    """A stage whose Quu is not positive definite: JAX's Cholesky returns NaN
+    and the solve goes on to a non-finite cost (which the runtime's recovery
+    handles); the port's backward passes give NaN in the same places instead
+    of raising, and the same finite values elsewhere (f64, rtol 1e-9)."""
+    from wb_humanoid_mpc_tpu.solver.priccati import parallel_backward_pass as jax_parallel
+    from wb_humanoid_mpc_tpu_torch.solver import priccati as port_priccati
+    from wb_humanoid_mpc_tpu_torch.solver import riccati as port_riccati
+
+    data = riccati.random_lq_data(np.random.default_rng(11), 8, 12, 5, dtype=np.float64)
+    data["Quu"][5] = -np.eye(5) * 1e3   # stage 5: negative definite
+    lq_j = types.SimpleNamespace(**{f: jnp.asarray(data[f]) for f in FIELDS[:-1]})
+    lq_t = types.SimpleNamespace(**{f: torch.as_tensor(data[f]) for f in FIELDS[:-1]})
+    if pass_ == "sequential":
+        ref, got = backward_pass(lq_j, 1e-8), port_riccati.backward_pass(lq_t, 1e-8)
+    else:
+        ref, got = jax_parallel(lq_j, 1e-8), port_priccati.parallel_backward_pass(lq_t, 1e-8)
+    for name, a, b in zip(("K", "k", "P", "p"), to_numpy(tuple(got)), to_numpy(tuple(ref))):
+        assert np.isnan(b).any(), name
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
+        np.testing.assert_allclose(a[~np.isnan(a)], b[~np.isnan(b)], rtol=1e-9, atol=1e-9,
+                                   err_msg=name)

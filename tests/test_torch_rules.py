@@ -37,11 +37,16 @@ from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     make_sqp_solver,
     make_staged_sqp_solver,
 )
+from wb_humanoid_mpc_tpu_torch.tools import launch
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 TOY = interface.ASSETS / "toy_biped"
+PHYSICS_AND_TOOLS = [f"wb_humanoid_mpc_tpu_torch.{m}" for m in (
+    "sim.mujoco_sim", "sim.closed_loop", "sim.sim_thread", "viz.visualizer", "tools.launch",
+    "tools.commands", "tools.benchmarks", "tools.observation_logger", "tools.velocity_gui")]
+OPTIONAL = ("mujoco", "matplotlib", "tkinter", "pygame")
 
 
 def _port_modules() -> list[str]:
@@ -73,6 +78,8 @@ def test_port_imports_no_jax():
             "wb_humanoid_mpc_tpu_torch.parallel.horizon",
             "wb_humanoid_mpc_tpu_torch.parallel.dryrun",
             "wb_humanoid_mpc_tpu_torch.solver.sharded_sqp"} <= set(mods)
+    # the MuJoCo loop, its threads, the viz and the launch CLI
+    assert set(PHYSICS_AND_TOOLS) <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from wb_humanoid_mpc_tpu_torch.ops import _lib\n"
@@ -250,3 +257,76 @@ def test_unknown_config_value_raises(field, value, toy_problem):
     for make in (make_sqp_solver, make_staged_sqp_solver):
         with pytest.raises(ValueError, match=field):
             make(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")
+
+
+def test_port_imports_without_the_optional_packages():
+    """With mujoco, matplotlib, tkinter and pygame blocked, every module of
+    the port imports; making a MuJoCo interface then raises an ImportError
+    that names mujoco."""
+    code = ("import importlib, json, sys\n"
+            f"for name in {OPTIONAL!r}: sys.modules[name] = None\n"
+            f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+            "from wb_humanoid_mpc_tpu_torch.sim.mujoco_sim import MujocoSimInterface\n"
+            "try:\n"
+            "    MujocoSimInterface('robot.xml')\n"
+            "    err = None\n"
+            "except ImportError as e:\n"
+            "    err = str(e)\n"
+            f"loaded = sorted(n for n in {OPTIONAL!r} if sys.modules.get(n) is not None)\n"
+            "print(json.dumps({'err': err, 'loaded': loaded}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == [] and "mujoco" in got["err"]
+
+
+def _toy_cli(command):
+    urdf, task, ref, gait = interface.mpc_files(TOY, "wb")
+    return [command, "--formulation", "wb", "--urdf", urdf, "--n-nodes", "3", "--duration",
+            "0.1", "--batch", "2", "--rounds", "1"]
+
+
+def _mujoco_loop(pb):
+    from wb_humanoid_mpc_tpu_torch.sim.closed_loop import run_mujoco_closed_loop
+
+    mpc = interface.build_wb_mpc(*interface.mpc_files(TOY, "wb"), n_nodes=3, device="cpu",
+                                 dtype=torch.float64)
+    return run_mujoco_closed_loop(mpc, WBMrtController(mpc.model), None, 0.1)
+
+
+def _threaded_sim(pb):
+    from wb_humanoid_mpc_tpu_torch.sim.sim_thread import run_threaded_robot_sim
+
+    mpc = interface.build_centroidal_mpc(*interface.mpc_files(TOY, "centroidal"), n_nodes=3,
+                                         device="cpu", dtype=torch.float64)
+    return run_threaded_robot_sim(mpc, CentroidalMrtController(mpc.model), None, 0.1)
+
+
+SIM_ENTRY_POINTS = {
+    "launch.main dummy-sim": lambda pb: launch.main(_toy_cli("dummy-sim")),
+    "launch.main mujoco-sim": lambda pb: launch.main(_toy_cli("mujoco-sim")),
+    "launch.main bench-batched": lambda pb: launch.main(_toy_cli("bench-batched")),
+    "launch._build": lambda pb: launch._build(launch.parse_args(_toy_cli("dummy-sim"))),
+    "run_mujoco_closed_loop": _mujoco_loop,
+    "run_threaded_robot_sim": _threaded_sim,
+}
+
+
+@pytest.mark.parametrize("entry", list(SIM_ENTRY_POINTS))
+def test_sim_and_cli_default_to_the_card(entry, toy_problem, no_card):
+    """The CLI without `--device`, and both MuJoCo loops through their
+    controllers' default device, raise on a machine without a card."""
+    assert launch.parse_args(["dummy-sim"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SIM_ENTRY_POINTS[entry](toy_problem)
+
+
+def test_mujoco_loop_refuses_a_controller_on_another_device():
+    from wb_humanoid_mpc_tpu_torch.sim.closed_loop import run_mujoco_closed_loop
+
+    mpc = interface.build_wb_mpc(*interface.mpc_files(TOY, "wb"), n_nodes=3, device="cpu",
+                                 dtype=torch.float64)
+    ctrl = WBMrtController(mpc.model, device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="the controller runs on meta"):
+        run_mujoco_closed_loop(mpc, ctrl, None, 0.1)

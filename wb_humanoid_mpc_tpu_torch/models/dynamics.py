@@ -76,6 +76,19 @@ def com_position(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     return com_from_fk(model, forward_kinematics(model, q))
 
 
+def kinetic_energy(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[...] kinetic energy 1/2 v^T M(q) v."""
+    return 0.5 * torch.einsum("...i,...ij,...j->...", v, mass_matrix(model, q), v)
+
+
+def potential_energy(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """[...] gravitational potential energy, zero at z = 0."""
+    fk = forward_kinematics(model, q)
+    rt = robot_tensors(model, fk.R.device, fk.R.dtype)
+    com_w = fk.p + torch.einsum("...bij,bj->...bi", fk.R, rt.com)
+    return model.gravity * (rt.mass * com_w[..., 2]).sum(-1)
+
+
 class MassNle(NamedTuple):
     M: torch.Tensor
     nle: torch.Tensor

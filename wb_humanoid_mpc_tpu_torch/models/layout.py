@@ -1,9 +1,9 @@
 """State/input layouts of both formulations: index arithmetic on tensors.
 
 PyTorch counterpart of `wb_humanoid_mpc_tpu/models/layout.py`. Every
-accessor is a slice of the last dim, so it works on batched tensors. The JAX
-classes' `with_*` setters (`.at[].set`) have no caller in either package and
-are not ported.
+accessor is a slice of the last dim, so it works on batched tensors. The
+`with_*` setters (JAX's `.at[].set`) return a new tensor with one slice of
+the last dim replaced, the value broadcast over the leading dims.
 
 Centroidal:
     state  x = [h_com(6, normalized momentum), q_base(6), q_joints(n)]   (12+n)
@@ -25,6 +25,14 @@ import torch
 
 N_CONTACTS = 2
 WRENCH_DIM = 6
+
+
+def _with_slice(x, lo: int, hi: int | None, val):
+    """x with x[..., lo:hi] replaced by `val` (broadcast); out of place."""
+    hi = x.shape[-1] if hi is None else hi
+    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    val = torch.broadcast_to(val, (*x.shape[:-1], hi - lo))
+    return torch.cat([x[..., :lo], val, x[..., hi:]], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +67,12 @@ class Layout:
         """Joint velocities (centroidal) / accelerations (whole-body)."""
         return u[..., 6 * N_CONTACTS:]
 
+    def with_contact_force(self, u, contact: int, force):
+        return _with_slice(u, 6 * contact, 6 * contact + 3, force)
+
+    def with_joint_input(self, u, val):
+        return _with_slice(u, 6 * N_CONTACTS, None, val)
+
 
 @dataclasses.dataclass(frozen=True)
 class CentroidalLayout(Layout):
@@ -86,6 +100,15 @@ class CentroidalLayout(Layout):
     def generalized_coordinates(self, x):
         """q = [p, theta, q_j] for the rigid-body engine."""
         return x[..., 6:]
+
+    def with_momentum(self, x, h):
+        return _with_slice(x, 0, 6, h)
+
+    def with_base_pose(self, x, pose):
+        return _with_slice(x, 6, 12, pose)
+
+    def with_joint_angles(self, x, qj):
+        return _with_slice(x, 12, None, qj)
 
     def assemble(self, h, base_pose, qj):
         return torch.cat([h, base_pose, qj], dim=-1)
@@ -127,6 +150,12 @@ class WBLayout(Layout):
 
     def generalized_velocities(self, x):
         return x[..., 6 + self.n_joints:]
+
+    def with_base_pose(self, x, pose):
+        return _with_slice(x, 0, 6, pose)
+
+    def with_joint_angles(self, x, qj):
+        return _with_slice(x, 6, 6 + self.n_joints, qj)
 
     def assemble(self, q, v):
         return torch.cat([q, v], dim=-1)

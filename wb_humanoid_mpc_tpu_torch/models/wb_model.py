@@ -80,3 +80,8 @@ class WholeBodyModel:
         nle = dyn.nle_newton_euler(self.robot, fk, vb, J)
         return dyn.joint_torques(self.robot, M, nle, lay.joint_input(u),
                                  self._contact_jacobians(fk), lay.contact_wrenches(u))
+
+    def initial_state(self, base_pose, joint_angles):
+        """x = [base_pose, joint_angles] with zero velocities."""
+        q = torch.cat([torch.as_tensor(base_pose), torch.as_tensor(joint_angles)])
+        return self.layout.assemble(q, torch.zeros_like(q))

@@ -36,3 +36,17 @@ class BarrierParams(NamedTuple):
 def masked_barrier_value(h, active, safe_value=1e3):
     """Replace inactive rows with a benign constant. `active` is float 0/1."""
     return active * h + (1.0 - active) * safe_value
+
+
+def node_cost(terms: NodeTerms, bp: BarrierParams) -> torch.Tensor:
+    """[...] cost of one node's terms: 1/2 |r|^2 + the active log-barrier rows
+    + the quadratic-barrier rows (no equality term)."""
+    from wb_humanoid_mpc_tpu_torch.ocp.penalties import quadratic_barrier, relaxed_log_barrier
+
+    c = 0.5 * (terms.r ** 2).sum(-1)
+    if terms.h_log.shape[-1]:
+        c = c + (terms.h_log_mask
+                 * relaxed_log_barrier(terms.h_log, bp.log_mu, bp.log_delta)).sum(-1)
+    if terms.h_quad.shape[-1]:
+        c = c + quadratic_barrier(terms.h_quad, bp.quad_mu, bp.quad_delta).sum(-1)
+    return c

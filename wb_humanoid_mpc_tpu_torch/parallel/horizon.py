@@ -42,6 +42,7 @@ from wb_humanoid_mpc_tpu_torch.solver.priccati import (
     _leaves,
     _scan,
 )
+from wb_humanoid_mpc_tpu_torch.solver.riccati import cholesky
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
 
 
@@ -113,7 +114,7 @@ def block_backward_gains(elems_loc: _Elem, A, B, d, Qxx, Quu, Qux, qx, qu, group
     Quu_h = Quu_h + (reg * scale)[..., None, None] * eyeu
     Qux_h = Qux + Bt @ Pn @ A
     Qu = qu + _mv(Bt, _mv(Pn, d) + pn)
-    L = torch.linalg.cholesky(0.5 * (Quu_h + Quu_h.transpose(-1, -2)))
+    L = cholesky(0.5 * (Quu_h + Quu_h.transpose(-1, -2)))
     Kg = -torch.cholesky_solve(Qux_h, L)
     kg = -torch.cholesky_solve(Qu[..., None], L)[..., 0]
     return Kg, kg

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from wb_humanoid_mpc_tpu_torch.solver.riccati import RiccatiSolution
+from wb_humanoid_mpc_tpu_torch.solver.riccati import RiccatiSolution, cholesky
 
 
 class _Elem(NamedTuple):
@@ -89,7 +89,7 @@ def stage_leaf(A, B, d, Qxx, Quu, Qux, qx, qu, reg: float) -> _Elem:
     eyeu = torch.eye(nu, dtype=B.dtype, device=B.device)
     scale = torch.clamp(torch.amax(torch.diagonal(Quu, dim1=-2, dim2=-1), dim=-1), min=1.0)
     Quu_r = Quu + (reg * scale)[..., None, None] * eyeu
-    L = torch.linalg.cholesky(0.5 * (Quu_r + _T(Quu_r)))
+    L = cholesky(0.5 * (Quu_r + _T(Quu_r)))
     K0 = -torch.cholesky_solve(Qux, L)
     k0 = -torch.cholesky_solve(qu[..., None], L)[..., 0]
     BiQ = torch.cholesky_solve(_T(B), L)
@@ -122,7 +122,7 @@ def parallel_backward_pass(lq, reg: float = 1e-8) -> RiccatiSolution:
     Quu_h = Quu_h + (reg * scale)[..., None, None] * eyeu
     Qux_h = lq.Qux + _T(B) @ P1 @ lq.A
     Qu = lq.qu + _mv(_T(B), _mv(P1, lq.d) + p1)
-    L = torch.linalg.cholesky(0.5 * (Quu_h + _T(Quu_h)))
+    L = cholesky(0.5 * (Quu_h + _T(Quu_h)))
     K = -torch.cholesky_solve(Qux_h, L)
     k = -torch.cholesky_solve(Qu[..., None], L)[..., 0]
     return RiccatiSolution(K=K, k=k, P=P, p=p)

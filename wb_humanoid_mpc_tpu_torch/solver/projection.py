@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from wb_humanoid_mpc_tpu_torch.solver.riccati import cholesky
 from wb_humanoid_mpc_tpu_torch.solver.transcription import LQApprox
 
 
@@ -52,7 +53,7 @@ def project_lq(lq: LQApprox, Cx: torch.Tensor, Du: torch.Tensor, g: torch.Tensor
     M0 = Du @ DuT
     scale = torch.clamp(torch.amax(torch.diagonal(M0, dim1=-2, dim2=-1), dim=-1), min=1.0)
     M = M0 + (eps * scale)[..., None, None] * eye
-    Lchol = torch.linalg.cholesky(0.5 * (M + M.transpose(-1, -2)))
+    Lchol = cholesky(0.5 * (M + M.transpose(-1, -2)))
     Dp = torch.cholesky_solve(eye.expand_as(M), Lchol)
     Dpinv = DuT @ Dp                                    # [N, nu, nc]
     L = -Dpinv @ Cx                                     # [N, nu, nx]

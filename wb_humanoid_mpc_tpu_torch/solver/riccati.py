@@ -19,6 +19,17 @@ from typing import NamedTuple
 import torch
 
 
+def cholesky(M):
+    """Lower Cholesky factor of a symmetric M, with NaN in its lower triangle
+    where M is not positive definite: `jnp.linalg.cholesky`'s answer there.
+    A failed factorization then reaches the cost as NaN, which the runtime's
+    divergence recovery handles as the JAX package's does, where
+    `torch.linalg.cholesky` would raise."""
+    L, info = torch.linalg.cholesky_ex(M)
+    nan = torch.full_like(L, float("nan")).tril()
+    return torch.where((info > 0)[..., None, None], nan, L)
+
+
 def levenberg_damp(lq, reg: float):
     """Fold relative Levenberg trust-region damping into the stage data:
     Quu_k += reg * max(max(diag(Quu_k)), 1) * I."""
@@ -62,7 +73,7 @@ def backward_pass(lq, reg: float = 1e-8) -> RiccatiSolution:
         scale = torch.clamp(torch.amax(torch.diagonal(Quu_h, dim1=-2, dim2=-1), dim=-1), min=1.0)
         Quu_h = Quu_h + (reg * scale)[..., None, None] * eyeu
         Qux_h = lq.Qux[..., i, :, :] + Bt @ PA
-        L = torch.linalg.cholesky(0.5 * (Quu_h + Quu_h.transpose(-1, -2)))
+        L = cholesky(0.5 * (Quu_h + Quu_h.transpose(-1, -2)))
         K = -torch.cholesky_solve(Qux_h, L)
         kff = -torch.cholesky_solve(Qu[..., None], L)[..., 0]
         P = Qxx_h + Qux_h.transpose(-1, -2) @ K

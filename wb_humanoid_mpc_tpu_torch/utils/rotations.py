@@ -116,3 +116,51 @@ def quat_to_rot(q_wxyz):
     return _mat([[ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy)],
                  [2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx)],
                  [2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz]])
+
+
+def rot_to_quat(R):
+    """Rotation matrix -> unit quaternion [w, x, y, z] (Shepperd's method, the
+    four cases selected branch-free with `torch.where`)."""
+    m00, m11, m22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def case(diag, parts):
+        s = torch.sqrt(torch.clamp(diag, min=1e-12)) * 2.0
+        return torch.stack([0.25 * s if p is None else p / s for p in parts], dim=-1)
+
+    d01, d10 = R[..., 0, 1] + R[..., 1, 0], R[..., 1, 0] - R[..., 0, 1]
+    d02, d20 = R[..., 0, 2] + R[..., 2, 0], R[..., 0, 2] - R[..., 2, 0]
+    d12, d21 = R[..., 1, 2] + R[..., 2, 1], R[..., 2, 1] - R[..., 1, 2]
+    q_w = case(tr + 1.0, (None, d21, d20, d10))
+    q_x = case(1.0 + m00 - m11 - m22, (d21, None, d01, d02))
+    q_y = case(1.0 - m00 + m11 - m22, (d20, d01, None, d12))
+    q_z = case(1.0 - m00 - m11 + m22, (d10, d02, d12, None))
+    use_w = tr > 0.0
+    use_x = ~use_w & (m00 >= m11) & (m00 >= m22)
+    use_y = ~use_w & ~use_x & (m11 >= m22)
+    q = torch.where(use_w[..., None], q_w,
+                    torch.where(use_x[..., None], q_x,
+                                torch.where(use_y[..., None], q_y, q_z)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rotation_error_world(R, R_ref):
+    """3-dim orientation error vee(log(R @ R_ref^T)): the skew part of the
+    relative rotation, scaled to the rotation angle (reference
+    `EndEffectorKinematicCostHelpers.h:39-96`)."""
+    E = R @ R_ref.transpose(-1, -2)
+    w = torch.stack([E[..., 2, 1] - E[..., 1, 2], E[..., 0, 2] - E[..., 2, 0],
+                     E[..., 1, 0] - E[..., 0, 1]], dim=-1)
+    cos_a = torch.clamp(0.5 * (E.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0), -1.0, 1.0)
+    angle = torch.arccos(cos_a)
+    sin_a = torch.sin(angle)
+    # w = 2 sin(a) axis, so a axis = w a / (2 sin a); 1/2 near a = 0
+    big = sin_a > 1e-6
+    scale = torch.where(big, angle / (2.0 * torch.where(big, sin_a, torch.ones_like(sin_a))),
+                        torch.full_like(sin_a, 0.5))
+    return w * scale[..., None]
+
+
+def rpy_to_rot(rpy):
+    """URDF rpy (fixed-axis XYZ, Rz(y) Ry(p) Rx(r)) -> rotation matrix."""
+    return rot_z(rpy[..., 2]) @ rot_y(rpy[..., 1]) @ rot_x(rpy[..., 0])
