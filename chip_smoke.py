@@ -32,6 +32,9 @@ rows), the stance setup of `bench.py`, in float32:
   K2 at the sharded path's row counts;
 - the launch CLI in-process, as a user runs it: `dummy-sim --formulation wb`
   (1.0 s at 50 / 25 Hz, `--log-csv`) and `bench-batched --batch 8`;
+- the port's bench entry in-process, as a user runs it
+  (`tools.bench.main(["--timed", "20", "--latency-samples", "5"])`: its
+  JSON line, K1 once per solve), then `scaling_report((1, 8))`;
 - where the machine has `mujoco` (found by `importlib.util.find_spec`), the
   MuJoCo physics loop on humanoid23's MJCF: `run_mujoco_closed_loop`
   synchronous for both formulations and with a 12 ms solve latency
@@ -1065,6 +1068,62 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     return out
 
 
+BENCH_TIMED, BENCH_SAMPLES = 20, 5
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_phase(torch, riccati, fkvel, card: str) -> dict:
+    """The bench entry, in-process, as a user runs it (humanoid23, N = 28,
+    f32): `tools.bench.main` with `--timed 20 --latency-samples 5`, its
+    standard output and error captured: one JSON line with `bench.py`'s four
+    keys, a finite value > 0, vs_baseline = round(value / 60, 3), K1 once per
+    solve (1 + 20 + 5) and K2 6 to 9 times. Then `scaling_report((1, 8))`
+    with `solver_overrides={}`: both points finite, K1 once per batched
+    iteration. Launch counts set to 0 just before each."""
+    import contextlib
+    import io
+
+    from wb_humanoid_mpc_tpu_torch.parallel.scaling import scaling_report
+    from wb_humanoid_mpc_tpu_torch.tools import bench
+
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    out_buf, err_buf = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_buf), contextlib.redirect_stderr(err_buf):
+        res = bench.main(["--timed", str(BENCH_TIMED), "--latency-samples", str(BENCH_SAMPLES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = riccati.LAUNCHES, fkvel.LAUNCHES
+    lines = out_buf.getvalue().strip().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != res or list(res) != BENCH_KEYS:
+        raise AssertionError(f"bench: printed {lines!r}, returned {res!r}")
+    if not (np.isfinite(res["value"]) and res["value"] > 0
+            and res["vs_baseline"] == round(res["value"] / 60.0, 3)):
+        raise AssertionError(f"bench: value {res['value']}, vs_baseline {res['vs_baseline']}")
+    _expect_launches("bench", "wb", k1, k2, 1 + BENCH_TIMED + BENCH_SAMPLES)
+    stderr = err_buf.getvalue().strip()
+    print(lines[0])
+    print(f"bench: {stderr}; launches in {1 + BENCH_TIMED + BENCH_SAMPLES} solves K1 {k1} "
+          f"K2 {k2}; {wall:.2f} s in all | {card}")
+
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    report = scaling_report((1, 8), N_NODES, solver_overrides={}, device="cuda")
+    torch.cuda.synchronize()
+    sk1, sk2 = riccati.LAUNCHES, fkvel.LAUNCHES
+    if [r.get("batch") for r in report] != [1, 8] or not all(r.get("finite") for r in report):
+        raise AssertionError(f"scaling_report((1, 8)): {report}")
+    n_it = 2 * (1 + 30)   # two points of 1 + n_rounds (30, batched_throughput's default)
+    _expect_launches("scaling_report", "wb", sk1, sk2, n_it)
+    for r in report:
+        print(f"scaling_report B={r['batch']}: {r['instances_per_s']:.2f} instances/s, "
+              f"{r['sqp_iterations_per_s']:.2f} SQP it/s, {r['round_time_s'] * 1e3:.2f} ms a "
+              f"batched iteration | {card}")
+    return {"line": res, "stderr": stderr, "wall_s": wall, "launches": {"K1": k1, "K2": k2},
+            "scaling_report": report, "scaling_launches": {"K1": sk1, "K2": sk2}}
+
+
 def _mujoco_sim(mpc, mjcf: str):
     from wb_humanoid_mpc_tpu_torch.sim.mujoco_sim import MujocoSimInterface
 
@@ -1643,7 +1702,11 @@ def main() -> int:
     launched = launch_phase(torch, riccati, fkvel, card)
     print(json.dumps({"launch": launched, "card": card}))
 
-    # ---- 14. the MuJoCo physics loop, where this machine has mujoco ----
+    # ---- 14. the bench entry and the scaling report, as a user runs them ----
+    benched = bench_phase(torch, riccati, fkvel, card)
+    print(json.dumps({"bench": benched, "card": card}))
+
+    # ---- 15. the MuJoCo physics loop, where this machine has mujoco ----
     if importlib.util.find_spec("mujoco") is None:
         print(f"mujoco: {NO_MUJOCO}")
         print(json.dumps({"mujoco": {"skipped": NO_MUJOCO}, "card": card}))

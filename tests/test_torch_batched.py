@@ -18,6 +18,8 @@ iterations):
 
 from __future__ import annotations
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,7 @@ from wb_humanoid_mpc_tpu.solver.sqp import SqpSolverConfig as JaxConfig
 from wb_humanoid_mpc_tpu.solver.transcription import Trajectory as JaxTrajectory
 from wb_humanoid_mpc_tpu_torch import interface
 from wb_humanoid_mpc_tpu_torch.ops import fkvel, riccati
+from wb_humanoid_mpc_tpu_torch.parallel import scaling
 from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
@@ -195,3 +198,51 @@ def test_batched_throughput_on_the_cpu():
     out = batched_throughput(2, n_nodes=3, n_rounds=1, device="cpu", dtype=torch.float64)
     assert out["batch"] == 2 and out["finite"] and out["device"] == "cpu"
     assert out["instances_per_s"] == 2 / out["round_time_s"]
+
+
+def test_batched_throughput_takes_the_solver_overrides(monkeypatch):
+    """`solver_overrides` reach `SqpSolverConfig` (JAX's argument); the
+    whole-body problem is solved whatever `formulation` says; the rate counts
+    every SQP iteration of a solve."""
+    seen = []
+    real = scaling.SqpSolverConfig
+
+    def recording(**kw):
+        seen.append(real(**kw))
+        return seen[-1]
+
+    monkeypatch.setattr(scaling, "SqpSolverConfig", recording)
+    out = batched_throughput(2, 3, "centroidal", 1, 0, {"sqp_iterations": 2, "rho": 500.0},
+                             device="cpu", dtype=torch.float64)
+    assert [(c.sqp_iterations, c.rho) for c in seen] == [(2, 500.0)]
+    assert out["finite"]
+    assert out["sqp_iterations_per_s"] == 2 * 2 / out["round_time_s"]
+
+
+def test_scaling_report_records_a_failed_point_and_stops(monkeypatch):
+    """A point that raises is recorded with its error's first line (at most
+    200 characters) and ends the sweep, as JAX's report does."""
+    calls = []
+
+    def fake(batch, n_nodes, solver_overrides=None, *, device, dtype):
+        calls.append((batch, solver_overrides))
+        if batch == 3:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory. " + "x" * 300 + "\nmore")
+        return {"batch": batch, "n_nodes": n_nodes, "finite": True}
+
+    monkeypatch.setattr(scaling, "batched_throughput", fake)
+    out = scaling.scaling_report((2, 3, 4), n_nodes=3, solver_overrides={"rho": 500.0},
+                                 device="cpu", dtype=torch.float64)
+    assert calls == [(2, {"rho": 500.0}), (3, {"rho": 500.0})]
+    assert out[0] == {"batch": 2, "n_nodes": 3, "finite": True}
+    assert out[1] == {"batch": 3, "n_nodes": 3,
+                      "error": ("CUDA out of memory. " + "x" * 300)[:200]}
+    assert len(out) == 2
+
+
+def test_scaling_report_on_the_cpu():
+    out = scaling.scaling_report((2, 3), n_nodes=3, solver_overrides={}, device="cpu",
+                                 dtype=torch.float64)
+    assert [r["batch"] for r in out] == [2, 3] and all(r["finite"] for r in out)
+    assert inspect.signature(scaling.scaling_report).parameters["batches"].default == (
+        1, 8, 64, 256, 1024)

@@ -514,23 +514,25 @@ MUJOCO_LOOP = dict(duration=0.2, mrt_frequency=100.0, mpc_frequency=25.0)
 MUJOCO_LATENCY = 0.012   # tests/test_mujoco_loop.py's solve latency
 
 
-def mujoco_run(mpc, sim_cls, ctrl, run, **kw):
-    """`run` (either package's `run_mujoco_closed_loop`) on toy_biped's MJCF
-    from the MPC's initial state, zero command."""
+def mujoco_run(mpc, sim_cls, ctrl, run, robot: str = "toy_biped", loop=None, **kw):
+    """`run` (either package's `run_mujoco_closed_loop`) on `robot`'s MJCF
+    from the MPC's initial state, zero command, at `loop`'s duration and
+    rates (default MUJOCO_LOOP)."""
     mpc.runtime.reset()
     lay = mpc.model.layout
     x0 = np.asarray(mpc.initial_state)
-    sim = sim_cls(str(ASSETS / "toy_biped" / "toy_biped.xml"),
+    sim = sim_cls(str(ASSETS / robot / f"{robot}.xml"),
                   initial_joint_positions=dict(zip(mpc.model.robot.joint_names,
                                                    map(float, lay.joint_angles(x0)))),
                   initial_base_pos=(0.0, 0.0, float(lay.base_position(x0)[2])))
-    return run(mpc, ctrl, sim, **MUJOCO_LOOP, command_fn=lambda t: np.zeros(4), **kw)
+    return run(mpc, ctrl, sim, **(loop or MUJOCO_LOOP), command_fn=lambda t: np.zeros(4), **kw)
 
 
-def check_mujoco_loop(formulation: str, pair, mode: str) -> None:
-    """The port's `run_mujoco_closed_loop` against JAX's on toy_biped, tick by
-    tick: base and joint positions within MUJOCO_LOOP_TOL x max(1,
-    max|ref|), the solves' cost and g_norm too, the same step sizes."""
+def mujoco_pair_runs(formulation: str, pair, mode: str = "sync", robot: str = "toy_biped",
+                     loop=None):
+    """(port's log, JAX's log) of `run_mujoco_closed_loop` on `robot`, each
+    with its own package's MRT controller; `mode` "sync" or "latency"
+    (MUJOCO_LATENCY)."""
     from wb_humanoid_mpc_tpu.mpc import controller as jax_controller
     from wb_humanoid_mpc_tpu.sim import closed_loop as jax_closed_loop
     from wb_humanoid_mpc_tpu.sim import mujoco_sim as jax_mujoco_sim
@@ -543,22 +545,39 @@ def check_mujoco_loop(formulation: str, pair, mode: str) -> None:
     pctrl = getattr(controller, name)(port_mpc.model, device="cpu", dtype=torch.float64)
     kw = {} if mode == "sync" else dict(solve_latency=MUJOCO_LATENCY)
     ref = mujoco_run(jax_mpc, jax_mujoco_sim.MujocoSimInterface, jctrl,
-                     jax_closed_loop.run_mujoco_closed_loop, **kw)
+                     jax_closed_loop.run_mujoco_closed_loop, robot, loop, **kw)
     got = mujoco_run(port_mpc, mujoco_sim.MujocoSimInterface, pctrl,
-                     closed_loop.run_mujoco_closed_loop, **kw)
-    what = f"{formulation} {mode}"
-    assert got.n_resets == ref.n_resets == 0, what
-    np.testing.assert_array_equal(got.times, ref.times)
+                     closed_loop.run_mujoco_closed_loop, robot, loop, **kw)
+    return got, ref
+
+
+def assert_mujoco_logs_close(got, ref, what: str, n_ticks: int | None = None,
+                             n_solves: int | None = None) -> None:
+    """Two ClosedLoopLogs tick by tick, the first `n_ticks` ticks and
+    `n_solves` solves (default all): the same times, base and joint
+    positions within MUJOCO_LOOP_TOL x max(1, max|ref|), the solves' cost and
+    g_norm too, the same step sizes."""
+    np.testing.assert_array_equal(got.times[:n_ticks], ref.times[:n_ticks])
     assert len(got.solve_stats) == len(ref.solve_stats) > 0, what
-    pairs = [("base_positions", got.base_positions, ref.base_positions),
-             ("joint_positions", got.joint_positions, ref.joint_positions)]
+    gs, rs = got.solve_stats[:n_solves], ref.solve_stats[:n_solves]
+    pairs = [("base_positions", got.base_positions[:n_ticks], ref.base_positions[:n_ticks]),
+             ("joint_positions", got.joint_positions[:n_ticks], ref.joint_positions[:n_ticks])]
     for name in ("cost", "g_norm"):
-        pairs.append((name, np.array([getattr(s, name) for s in got.solve_stats]),
-                      np.array([float(getattr(s, name)) for s in ref.solve_stats])))
+        pairs.append((name, np.array([getattr(s, name) for s in gs]),
+                      np.array([float(getattr(s, name)) for s in rs])))
     for name, a, b in pairs:
         limit = MUJOCO_LOOP_TOL * max(1.0, float(np.abs(b).max()))
         err = np.abs(a - b).reshape(len(a), -1).max(axis=1)
         assert err.max() <= limit, (f"{what} {name}: tick {int(err.argmax())} off by "
                                     f"{err.max():.3e} > {limit:.3e}")
-    assert ([s.step_size for s in got.solve_stats]
-            == [float(s.step_size) for s in ref.solve_stats]), what
+    assert [s.step_size for s in gs] == [float(s.step_size) for s in rs], what
+
+
+def check_mujoco_loop(formulation: str, pair, mode: str, robot: str = "toy_biped",
+                      loop=None) -> None:
+    """The port's `run_mujoco_closed_loop` against JAX's on `robot`, tick by
+    tick (`assert_mujoco_logs_close`), no reset in either."""
+    got, ref = mujoco_pair_runs(formulation, pair, mode, robot, loop)
+    what = f"{robot} {formulation} {mode}"
+    assert got.n_resets == ref.n_resets == 0, what
+    assert_mujoco_logs_close(got, ref, what)

@@ -13,7 +13,10 @@ batches of 3 and 4, and bit-identical results from repeated launches). K2 runs a
 closed loop of each formulation (`build_*_mpc` + `run_dummy_sim`, humanoid23
 at N = 6) runs through the kernels and against its plain twin; the launch
 CLI's `dummy-sim` and, where the machine has mujoco, a short MuJoCo loop
-run on the card with their launch counts checked. Needs an
+run on the card with their launch counts checked; so does the bench entry
+(`tools.bench.main`, N = 28); `solver/priccati.py::_combine` on the card
+gives the CPU's non-finite pattern on a singular combine matrix, without a
+raise. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -466,3 +469,60 @@ def test_mujoco_loop_on_the_card(card):
     n_iter = sum(s.iterations for s in log.solve_stats)
     assert riccati.LAUNCHES == n_iter
     assert 6 * n_iter <= fkvel.LAUNCHES <= 9 * n_iter
+
+
+def test_bench_entry_on_the_card(card, capsys):
+    """`tools.bench.main` as a user runs it (humanoid23, N = 28, f32) with
+    `--timed 5`: one JSON line with `bench.py`'s four keys, a finite value,
+    K1 once per solve (1 warm-up + 5 + 10 latency samples), K2 6 to 9
+    times."""
+    import json
+
+    from wb_humanoid_mpc_tpu_torch.tools import bench
+
+    riccati.reset_launches()
+    fkvel.reset_launches()
+    out = bench.main(["--timed", "5"])
+    torch.cuda.synchronize()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == out
+    assert list(out) == ["metric", "value", "unit", "vs_baseline"]
+    assert np.isfinite(out["value"]) and out["value"] > 0
+    assert out["vs_baseline"] == round(out["value"] / 60.0, 3)
+    n_solves = 1 + 5 + 10
+    assert riccati.LAUNCHES == n_solves
+    assert 6 * n_solves <= fkvel.LAUNCHES <= 9 * n_solves
+
+
+def test_combine_on_the_card(card):
+    """`_combine` on CUDA tensors, with I + C_i J_j exactly singular in the
+    first element (C_i = I, J_j = -I) and one zero pivot in the second: no
+    raise, the CPU's non-finite entries in the same places, the finite ones
+    equal to 1e-12 (f64)."""
+    from wb_humanoid_mpc_tpu_torch.solver.priccati import _combine, _Elem
+
+    rng = np.random.default_rng(0)
+    n, batch = 5, 3
+
+    def elem():
+        W, V = rng.standard_normal((2, batch, n, n))
+        return dict(A=rng.standard_normal((batch, n, n)), b=rng.standard_normal((batch, n)),
+                    C=0.1 * W @ np.swapaxes(W, -1, -2), J=0.1 * V @ np.swapaxes(V, -1, -2),
+                    eta=rng.standard_normal((batch, n)))
+
+    ej, ei = elem(), elem()
+    ei["C"][0], ej["J"][0] = np.eye(n), -np.eye(n)
+    ei["C"][1], ej["J"][1] = np.eye(n), -np.diag([1.0] + [0.0] * (n - 1))
+
+    def run(dev):
+        return _combine(_Elem(**{k: torch.as_tensor(v, device=dev) for k, v in ej.items()}),
+                        _Elem(**{k: torch.as_tensor(v, device=dev) for k, v in ei.items()}))
+
+    got, ref = run(card), run("cpu")
+    torch.cuda.synchronize()
+    for name, a, b in zip(_Elem._fields, got, ref):
+        a = a.cpu()
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b)), name
+        assert not torch.isfinite(b[:2]).all() and torch.isfinite(b[2]).all(), name
+        ok = torch.isfinite(b)
+        torch.testing.assert_close(a[ok], b[ok], rtol=0.0, atol=1e-12, msg=name)

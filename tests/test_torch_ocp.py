@@ -1,7 +1,7 @@
 """PyTorch port, OCP and LQ layer against the JAX package on `toy_biped`:
 `WholeBodyOcp.fused_node` (terms and x_dot), the production node
 linearization `make_node_lq` ("node" sensitivity, external RK4 tail), and the
-equality projection `project_lq`.
+equality projection `project_lq` and its one-node closure `project_node`.
 
 Tolerances: f64 rtol 1e-9; f32 1e-3 relative to each output's largest entry
 (forward-mode Jacobians of a ~1000-op graph in float32). `project_lq` is
@@ -30,6 +30,7 @@ from tests.test_torch_common import (
 from wb_humanoid_mpc_tpu.ocp.wb_ocp import WBNodeParams as JaxParams
 from wb_humanoid_mpc_tpu.ocp.wb_ocp import WholeBodyOcp as JaxOcp
 from wb_humanoid_mpc_tpu.solver.projection import project_lq as jax_project_lq
+from wb_humanoid_mpc_tpu.solver.projection import project_node as jax_project_node
 from wb_humanoid_mpc_tpu.solver.transcription import LQApprox as JaxLQ
 from wb_humanoid_mpc_tpu.solver.transcription import Trajectory as JaxTrajectory
 from wb_humanoid_mpc_tpu.solver.transcription import make_lq_functions as jax_make_lq_functions
@@ -37,7 +38,7 @@ from wb_humanoid_mpc_tpu.solver.transcription import make_node_lq as jax_make_no
 from wb_humanoid_mpc_tpu.solver.transcription import rk4_step as jax_rk4_step
 from wb_humanoid_mpc_tpu_torch import convert
 from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WholeBodyOcp as PortOcp
-from wb_humanoid_mpc_tpu_torch.solver.projection import project_lq
+from wb_humanoid_mpc_tpu_torch.solver.projection import project_lq, project_node
 from wb_humanoid_mpc_tpu_torch.solver.transcription import (
     LQApprox,
     Trajectory,
@@ -213,3 +214,45 @@ def test_project_lq(dtype):
     red, proj = project_lq(tlq, *(torch.as_tensor(a, dtype=tdt) for a in (Cx, Du, g)), 1e-8)
     got = to_numpy(_proj_outputs(red, proj, torch.matmul, lambda a: a.transpose(-1, -2)))
     _scaled_close(got, ref, {"f64": 1e-9, "f32": 1e-4}[dtype], "project_lq")
+
+
+NODE_FIELDS = ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu")
+
+
+def _node_outputs(out, mm, T):
+    """project_node's (A', B', d', Qxx', Quu', Qux', qx', qu', L, Z, w) as
+    `_proj_outputs` compares them: Z only through basis-invariant lifts."""
+    A, B, d, Qxx, Quu, Qux, qx, qu, L, Z, w = out
+    return [L, w, A, d, Qxx, qx, mm(Z, T(Z)), mm(B, T(Z)), mm(mm(Z, Quu), T(Z)), mm(Z, Qux),
+            mm(Z, qu[..., None])]
+
+
+@pytest.mark.parametrize("node", [0, 1, 3], ids=["node0", "masked_row", "node3"])
+def test_project_node_matches_jax(node):
+    """JAX's `project_node(eps)` on one random stage in f64, to 1e-12; node 1
+    carries a masked (all-zero) row of [g, Cx, Du]."""
+    d, Cx, Du, g = _proj_data(2, "f64")
+    args = [d[k][node] for k in NODE_FIELDS] + [Cx[node], Du[node], g[node]]
+    if node == 1:
+        assert not Du[1, 3].any() and not Cx[1, 3].any() and g[1, 3] == 0.0
+    with jax_mode("f64"):
+        out = jax_project_node(1e-8)(*(jnp.asarray(a) for a in args))
+        ref = to_numpy(_node_outputs(out, jnp.matmul, lambda a: jnp.swapaxes(a, -1, -2)))
+    out = project_node(1e-8)(*(torch.as_tensor(a) for a in args))
+    assert len(out) == 11
+    got = to_numpy(_node_outputs(out, torch.matmul, lambda a: a.transpose(-1, -2)))
+    _scaled_close(got, ref, 1e-12, f"project_node node {node}")
+
+
+def test_project_node_is_a_row_of_project_lq():
+    """`project_node` on node k equals row k of the port's `project_lq`."""
+    d, Cx, Du, g = _proj_data(3, "f64")
+    t = {k: torch.as_tensor(v) for k, v in d.items()}
+    Cx, Du, g = (torch.as_tensor(a) for a in (Cx, Du, g))
+    red, proj = project_lq(LQApprox(**t), Cx, Du, g, 1e-8)
+    rows = (*red[:8], *proj)
+    one = project_node(1e-8)
+    for k in range(Cx.shape[0]):
+        out = one(*(t[f][k] for f in NODE_FIELDS), Cx[k], Du[k], g[k])
+        for a, b in zip(out, rows):
+            torch.testing.assert_close(a, b[k], rtol=0.0, atol=0.0)

@@ -2,10 +2,13 @@
 package; its entry points default to the CUDA card and never carry on on the
 CPU when there is none; a kernel wrapper asked for its kernel on CPU tensors
 raises instead of running the plain version; config values the solver does
-not know raise instead of being ignored."""
+not know raise instead of being ignored; every public top-level name of the
+JAX package has its counterpart at the same path in the port, but the
+Pallas kernels that the CUDA kernels replace."""
 
 from __future__ import annotations
 
+import ast
 import inspect
 import json
 import pkgutil
@@ -37,7 +40,7 @@ from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     make_sqp_solver,
     make_staged_sqp_solver,
 )
-from wb_humanoid_mpc_tpu_torch.tools import launch
+from wb_humanoid_mpc_tpu_torch.tools import bench, launch
 
 torch.set_num_threads(1)
 
@@ -45,6 +48,7 @@ REPO = Path(__file__).resolve().parent.parent
 TOY = interface.ASSETS / "toy_biped"
 PHYSICS_AND_TOOLS = [f"wb_humanoid_mpc_tpu_torch.{m}" for m in (
     "sim.mujoco_sim", "sim.closed_loop", "sim.sim_thread", "viz.visualizer", "tools.launch",
+    "tools.bench",
     "tools.commands", "tools.benchmarks", "tools.observation_logger", "tools.velocity_gui")]
 OPTIONAL = ("mujoco", "matplotlib", "tkinter", "pygame")
 
@@ -310,14 +314,18 @@ SIM_ENTRY_POINTS = {
     "launch._build": lambda pb: launch._build(launch.parse_args(_toy_cli("dummy-sim"))),
     "run_mujoco_closed_loop": _mujoco_loop,
     "run_threaded_robot_sim": _threaded_sim,
+    "bench.main": lambda pb: bench.main(["--n-nodes", "3", "--timed", "1",
+                                         "--latency-samples", "1"]),
 }
 
 
 @pytest.mark.parametrize("entry", list(SIM_ENTRY_POINTS))
 def test_sim_and_cli_default_to_the_card(entry, toy_problem, no_card):
-    """The CLI without `--device`, and both MuJoCo loops through their
-    controllers' default device, raise on a machine without a card."""
+    """The CLI and the bench entry without `--device`, and both MuJoCo loops
+    through their controllers' default device, raise on a machine without a
+    card."""
     assert launch.parse_args(["dummy-sim"]).device == "cuda"
+    assert bench.parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SIM_ENTRY_POINTS[entry](toy_problem)
 
@@ -330,3 +338,45 @@ def test_mujoco_loop_refuses_a_controller_on_another_device():
     ctrl = WBMrtController(mpc.model, device="meta", dtype=torch.float64)
     with pytest.raises(ValueError, match="the controller runs on meta"):
         run_mujoco_closed_loop(mpc, ctrl, None, 0.1)
+
+
+JAX_PACKAGE = REPO / "wb_humanoid_mpc_tpu"
+PORT_PACKAGE = REPO / "wb_humanoid_mpc_tpu_torch"
+
+
+def _public_names(path: Path, imported: bool) -> set[str]:
+    """Public top-level names a module defines (functions, classes,
+    assignments) and, with `imported`, the names it imports."""
+    found = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            found.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            found |= {n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            found |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in found if not n.startswith("_")}
+
+
+def test_every_public_jax_name_has_a_counterpart():
+    """Module by module, by the AST: each public top-level name of the JAX
+    package is defined (or imported) at the same path in the port. The only
+    exceptions are the Pallas kernels `ops/*.py::pallas_*`, which the CUDA
+    kernels of `csrc/` replace."""
+    modules = sorted(JAX_PACKAGE.rglob("*.py"))
+    assert len(modules) > 40
+    missing, pallas = [], []
+    for path in modules:
+        rel = path.relative_to(JAX_PACKAGE)
+        names = _public_names(path, imported=False)
+        port = PORT_PACKAGE / rel
+        have = _public_names(port, imported=True) if port.exists() else set()
+        for name in sorted(names - have):
+            if rel.parts[0] == "ops" and name.startswith("pallas_"):
+                pallas.append(f"{rel}::{name}")
+            else:
+                missing.append(f"{rel}::{name}")
+    assert missing == []
+    assert pallas == ["ops/fkvel.py::pallas_fkvel", "ops/riccati.py::pallas_riccati_rollout",
+                      "ops/rollout.py::pallas_forward_rollout"]

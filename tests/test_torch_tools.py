@@ -9,6 +9,9 @@ ported, against the JAX package's on the CPU.
   JAX package's on the same files: the two `--log-csv` files have the same
   header and rows within LOOP_TOL x max(1, max|ref|); `mujoco-sim` (0.2 s,
   500 / 25 Hz) runs with no reset and the base above 0.75 x 0.78321 m.
+  `DEFAULT_PATHS` equals JAX's key for key, and `--urdf` set to the G1's
+  path selects the G1's task, reference, gait and MJCF (path strings only:
+  the G1's files are not in the repository).
 - The helpers: `rot_to_quat`, `rotation_error_world`, `rpy_to_rot`,
   `kinetic_energy`, `potential_energy`, the layouts' `with_*` setters,
   `WholeBodyModel.initial_state` and `node_cost`, at 1e-12 (float64).
@@ -31,6 +34,7 @@ from wb_humanoid_mpc_tpu.models import layout as jax_layout
 from wb_humanoid_mpc_tpu.ocp import base as jax_base
 from wb_humanoid_mpc_tpu.tools import benchmarks as jax_bench
 from wb_humanoid_mpc_tpu.tools import commands as jax_commands
+from wb_humanoid_mpc_tpu.tools import launch as jax_launch
 from wb_humanoid_mpc_tpu.tools import observation_logger as jax_obs
 from wb_humanoid_mpc_tpu.utils import rotations as jax_rot
 from wb_humanoid_mpc_tpu_torch import interface
@@ -182,6 +186,26 @@ def test_launch_defaults_follow_the_urdf():
     toy = launch.robot_files(launch.parse_args(["dummy-sim", *_toy_args("wb")[:4]]))
     assert toy["mjcf"].endswith("toy_biped/toy_biped.xml")
     assert toy["reference"].endswith("toy_biped/reference_wb.info")
+
+
+def test_default_paths_match_jax():
+    assert list(launch.DEFAULT_PATHS) == list(jax_launch.DEFAULT_PATHS)
+    for key, path in jax_launch.DEFAULT_PATHS.items():
+        assert launch.DEFAULT_PATHS[key] == path, key
+
+
+@pytest.mark.parametrize("formulation", ["centroidal", "wb"])
+def test_the_g1_urdf_selects_the_g1_files(formulation):
+    """`--urdf <g1>` takes every other file from DEFAULT_PATHS, as the JAX
+    CLI's defaults do; a flag given still wins."""
+    g1 = launch.DEFAULT_PATHS
+    argv = ["mujoco-sim", "--formulation", formulation, "--urdf", g1["urdf"]]
+    files = launch.robot_files(launch.parse_args(argv))
+    assert files == {"urdf": g1["urdf"], "task": g1[f"{formulation}_task"],
+                     "reference": g1[f"{formulation}_ref"], "gait": g1["gait"],
+                     "mjcf": g1["mjcf"]}
+    given = launch.robot_files(launch.parse_args([*argv, "--gait", "my_gait.info"]))
+    assert given["gait"] == "my_gait.info" and given["task"] == files["task"]
 
 
 # ---- the helpers ----

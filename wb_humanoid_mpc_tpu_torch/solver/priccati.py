@@ -46,6 +46,12 @@ def _mv(M, x):
     return (M @ x[..., None])[..., 0]
 
 
+def _solve(A, B):
+    """A^-1 B by LU, without the error check: a singular A gives inf/NaN, as
+    `jnp.linalg.solve` does, instead of raising (and syncing with the host)."""
+    return torch.linalg.solve_ex(A, B, check_errors=False).result
+
+
 def _combine(ej: _Elem, ei: _Elem) -> _Elem:
     """Combine e_i (earlier) with e_j (later): value-function composition,
     batched over any leading dims."""
@@ -53,12 +59,12 @@ def _combine(ej: _Elem, ei: _Elem) -> _Elem:
     Aj, bj, Cj, Jj, etaj = ej
     eye = torch.eye(Ai.shape[-1], dtype=Ai.dtype, device=Ai.device)
     # A_j (I + C_i J_j)^-1, by a solve with the transposed system
-    AjM = _T(torch.linalg.solve(_T(eye + Ci @ Jj), _T(Aj)))
+    AjM = _T(_solve(_T(eye + Ci @ Jj), _T(Aj)))
     A = AjM @ Ai
     b = _mv(AjM, bi + _mv(Ci, etaj)) + bj
     C = AjM @ Ci @ _T(Aj) + Cj
     M2 = eye + Jj @ Ci
-    tmp = _T(Ai) @ torch.linalg.solve(M2, eye.expand(M2.shape))   # A_i^T (I + J_j C_i)^-1
+    tmp = _T(Ai) @ _solve(M2, eye.expand(M2.shape))   # A_i^T (I + J_j C_i)^-1
     J = tmp @ Jj @ Ai + Ji
     eta = _mv(tmp, etaj - _mv(Jj, bi)) + etai
     return _Elem(A, b, C, J, eta)

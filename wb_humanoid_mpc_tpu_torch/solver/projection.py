@@ -17,8 +17,9 @@ and the stage data transform to the reduced coordinates (dx, dz):
     qx' = qx + L^T (qu + Quu w) + Qux^T w
     qu' = Z^T (qu + Quu w)
 
-All nodes at once: batched `torch.linalg.cholesky` / `qr` (this code is not
-differentiated, so the library factorizations are fine here).
+All nodes at once (`project_lq`): a batched Cholesky (`solver/riccati.py::
+cholesky`) and `torch.linalg.qr` (this code is not differentiated, so the
+library factorizations are fine here); `project_node` is one node of it.
 """
 
 from __future__ import annotations
@@ -72,6 +73,20 @@ def project_lq(lq: LQApprox, Cx: torch.Tensor, Du: torch.Tensor, g: torch.Tensor
         qx=qx + _mv(LT, qu_w) + _mv(Qux.transpose(-1, -2), w), qu=_mv(ZT, qu_w),
         QN=lq.QN, qN=lq.qN, cost=lq.cost, g_norm=lq.g_norm, defect_norm=lq.defect_norm)
     return reduced, ProjectionData(L=L, Z=Z, w=w)
+
+
+def project_node(eps: float = 1e-8):
+    """Single-node projection closure, JAX's `project_node`: (A, B, d, Qxx,
+    Quu, Qux, qx, qu, C, D, g) of one node -> (A', B', d', Qxx', Quu', Qux',
+    qx', qu', L, Z, w). `project_lq` on a node axis of 1: the projection's
+    arithmetic is written once, there."""
+
+    def one(A, B, d, Qxx, Quu, Qux, qx, qu, C, D, gv):
+        lq = LQApprox(*(a[None] for a in (A, B, d, Qxx, Quu, Qux, qx, qu)), QN=None, qN=None)
+        reduced, proj = project_lq(lq, C[None], D[None], gv[None], eps)
+        return tuple(a[0] for a in (*reduced[:8], *proj))
+
+    return one
 
 
 def recover_controls(proj: ProjectionData, dxs: torch.Tensor, dzs: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,11 @@ kernels; `--device cpu` runs the plain versions on the CPU) in `--dtype`.
 The robot files default to the port's `assets/humanoid23`: the task,
 reference and gait files follow `--urdf`'s directory (`interface.mpc_files`)
 and the MJCF is `<urdf dir>/<name>.xml`, so `--urdf .../toy_biped.urdf`
-selects that robot whole. Velocity commands come from `--vx/--vy/--wz` or,
-with `--interactive`, from stdin (`vel 0.3 0 0`, `gait trot`, `stop`).
+selects that robot whole. `--urdf` set to `DEFAULT_PATHS["urdf"]`, the G1
+of the reference tree under `WBMPC_REFERENCE_ROOT` (JAX's default robot),
+selects the G1 whole from `DEFAULT_PATHS`. Velocity commands come from
+`--vx/--vy/--wz` or, with `--interactive`, from stdin (`vel 0.3 0 0`,
+`gait trot`, `stop`).
 `main(argv)` returns the numbers it prints, in a dict.
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -28,17 +32,35 @@ import torch
 
 from wb_humanoid_mpc_tpu_torch.interface import ASSETS, mpc_files
 
+_REF = os.environ.get("WBMPC_REFERENCE_ROOT", "/root/reference")
+_G1 = os.path.join(_REF, "robot_models/unitree_g1")
+DEFAULT_PATHS = {   # the G1 files of the reference tree, as the JAX CLI has them
+    "urdf": os.path.join(_G1, "g1_description/urdf/g1_29dof.urdf"),
+    "mjcf": os.path.join(_G1, "g1_description/urdf/g1_29dof.xml"),
+    "gait": os.path.join(_REF, "humanoid_nmpc/humanoid_common_mpc/config/command/gait.info"),
+    "centroidal_task": os.path.join(_G1, "g1_centroidal_mpc/config/mpc/task.info"),
+    "centroidal_ref": os.path.join(_G1, "g1_centroidal_mpc/config/command/reference.info"),
+    "wb_task": os.path.join(_G1, "g1_wb_mpc/config/mpc/task.info"),
+    "wb_ref": os.path.join(_G1, "g1_wb_mpc/config/command/reference.info"),
+}
 DEFAULT_URDF = str(ASSETS / "humanoid23" / "humanoid23.urdf")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def robot_files(args) -> dict:
     """The urdf, task, reference, gait and MJCF paths of `args`: each given
-    flag as given, the rest from `--urdf`'s asset directory."""
+    flag as given, the rest from `DEFAULT_PATHS` when `--urdf` is the G1's,
+    else from `--urdf`'s asset directory."""
     urdf = Path(args.urdf)
-    _, task, ref, gait = mpc_files(urdf.parent, args.formulation)
+    if str(urdf) == DEFAULT_PATHS["urdf"]:
+        task = DEFAULT_PATHS[f"{args.formulation}_task"]
+        ref = DEFAULT_PATHS[f"{args.formulation}_ref"]
+        gait, mjcf = DEFAULT_PATHS["gait"], DEFAULT_PATHS["mjcf"]
+    else:
+        _, task, ref, gait = mpc_files(urdf.parent, args.formulation)
+        mjcf = str(urdf.with_suffix(".xml"))
     return {"urdf": str(urdf), "task": args.task or task, "reference": args.reference or ref,
-            "gait": args.gait or gait, "mjcf": args.mjcf or str(urdf.with_suffix(".xml"))}
+            "gait": args.gait or gait, "mjcf": args.mjcf or mjcf}
 
 
 def _build(args):
@@ -196,7 +218,8 @@ def cmd_bench_batched(args) -> dict:
     as in the JAX CLI."""
     from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 
-    result = batched_throughput(args.batch, n_nodes=args.n_nodes or 28, n_rounds=args.rounds,
+    result = batched_throughput(args.batch, n_nodes=args.n_nodes or 28,
+                                formulation=args.formulation, n_rounds=args.rounds,
                                 device=args.device, dtype=DTYPES[args.dtype])
     print(json.dumps(result, indent=2))
     return result
