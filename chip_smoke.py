@@ -10,6 +10,11 @@ rows), the stance setup of `bench.py`, in float32:
 
 - the main path: warm-started whole-body SQP iterations (projection +
   filter), through K1 (`riccati.cu`) and K2 (`fkvel.cu`);
+- the compiled solve (`graphs` phase): the main path's solve as CUDA graphs
+  (`solver/graphs.py`, `make_sqp_solver`'s default on the card) against its
+  eager twin (`graphs=False`): the same result, K1 and K2 per iteration
+  under replay, capture seconds and memory, each graph's device time
+  against the wall time, and ten alternating pairs of it/s and p50;
 - the split LQ solve: the sequential `backward_pass` then K3
   (`rollout.cu`, one thread-block cluster per instance), on the main path's
   projected LQ (nz 21) and on the AL path's unprojected one (nu 35), against
@@ -41,9 +46,18 @@ rows), the stance setup of `bench.py`, in float32:
   (centroidal), and the three-thread `run_threaded_robot_sim`; without
   mujoco it prints a line that says so and runs none of it.
 
-Each path checks that its kernels were launched as the configuration
-implies, that the result is finite and that it agrees with the plain
-versions. Any failure exits non-zero. The last line is the device JSON; the
+Every path but the staged, DDP and sharded solvers runs its SQP solves as
+CUDA graphs, as a user gets them on the card; a replay adds the launches
+its graph holds to the kernels' counts. Each path checks that its kernels
+were launched as the configuration implies, that the result is finite and
+that it agrees with the plain versions. The checks of a path's last kernel
+launch against the plain version read it through `LaunchRecorder`: under
+capture it keeps copies of the launch's inputs and outputs that every
+replay refreshes, so they check the launch of the graph's last replay (the
+mrt and launch phases' timings hold those copies; the graphs phase prints
+what they cost). Count-only recorders count the main path's launches on the
+device, which must equal the wrappers' counts, and the batched sweep's by
+row count. Any failure exits non-zero. The last line is the device JSON; the
 line before it lists the kernels with their launches, errors, times and
 bounds (and, for K3, the launch floor: an empty kernel of its cluster
 grid). Without a CUDA card it exits with code 1 and prints no result.
@@ -72,6 +86,15 @@ K2_TOL = dict(rtol=1e-4, atol=5e-6)   # the Mosaic tolerance of tests/test_ops_f
 K1_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_ops_riccati.py Mosaic tier
 K3_TOL = {"f32": 1e-5, "f64": 1e-12}  # x max(1, max|ref|): tests/test_ops_rollout.py
 SOLVE_TOL = 2e-3                      # x max(1, max|ref|): kernels vs plain, whole solves
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now, as
+    `nvidia-smi` reads them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip()
 
 
 def card_line() -> str:
@@ -270,7 +293,8 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
         z_ref = load_reference_config(files[2], n_j).default_base_height
         print(f"closed loop {form}: humanoid23 nx {nx} nu {nu} n_eq {mpc.ocp.n_eq} N "
               f"{mpc.n_nodes} dt {mpc.dt:.6g} horizon {mpc.n_nodes * mpc.dt:.6g} s, f32, "
-              f"50 Hz plant / 25 Hz MPC")
+              f"50 Hz plant / 25 Hz MPC, graphed solves (the recovery solve captured at its "
+              f"first use)")
 
         # one solve first: the timings below are of a warm process
         mpc.runtime.advance(0.0, mpc.initial_state, np.zeros(4))
@@ -391,24 +415,86 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
     return out
 
 
-def _capture_last_launch(module, name: str, store: dict, key, counts: dict | None = None):
-    """Wrap `module.name` (a kernel wrapper, looked up at call time by its
-    dispatcher) so that it keeps the inputs and outputs of its last launch
-    under `key`, or under key(*args) when `key` is a function, and counts the
-    launches under that key in `counts`; returns a function that restores
-    the wrapper."""
-    orig = getattr(module, name)
+def _clone(tree):
+    """Copies of the tensors of nested tuples / NamedTuples."""
+    import torch
 
-    def wrapper(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        k = key(*args) if callable(key) else key
-        store[k] = (args, kwargs, out)
-        if counts is not None:
-            counts[k] = counts.get(k, 0) + 1
-        return out
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        parts = [_clone(t) for t in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
 
-    setattr(module, name, wrapper)
-    return lambda: setattr(module, name, orig)
+
+class LaunchRecorder:
+    """Wraps `module.name` (a kernel wrapper, looked up at call time by its
+    dispatcher) to keep the inputs and outputs of its last launch under
+    `key`, or under key(*args) when `key` is a function, and to count its
+    launches by key. A graphed solve calls the wrapper once, while its
+    capture records the launch, and then replays it without Python: under
+    capture the recorder keeps copies of the launch's inputs and outputs
+    that the graph refreshes at every replay, and a stamp and a count on the
+    device that the graph advances with each replay. So `last()` gives each
+    key's last launch that ran (eager, or a graph's last replay) and
+    `counts()` every launch that ran, replays included; a graph captured and
+    never replayed gives nothing. With keep=False it only counts (one
+    one-element add on the device a launch, no copies): the recorder of a
+    path whose timing matters."""
+
+    def __init__(self, module, name: str, key, device, slots: int = 4096, keep: bool = True):
+        import torch
+
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        dev = torch.device(device)
+        self.tick = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stamps = torch.zeros(slots, dtype=torch.int64, device=dev)
+        self.counted = torch.zeros(slots, dtype=torch.int64, device=dev)
+        self.keys: dict = {}      # key -> its slot in `counted`
+        self.entries: list = []   # (key, args, kwargs, out); entry i's stamp is stamps[i]
+        self.eager: dict = {}     # key -> the entry its eager launches overwrite
+
+        def wrapper(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            k = key(*args) if callable(key) else key
+            slot = self.keys.setdefault(k, len(self.keys))
+            if not keep:
+                self.counted[slot].add_(1)
+                return out
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                i = len(self.entries)
+                self.entries.append((k, _clone(args), kwargs, _clone(out)))
+            else:
+                i = self.eager.setdefault(k, len(self.entries))
+                if i == len(self.entries):
+                    self.entries.append(None)
+                self.entries[i] = (k, args, kwargs, out)
+            if i >= slots:
+                raise AssertionError(f"LaunchRecorder {name}: more than {slots} launch sites")
+            self.tick.add_(1)
+            self.stamps[i].copy_(self.tick)
+            self.counted[slot].add_(1)
+            return out
+
+        setattr(module, name, wrapper)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.orig)
+
+    def last(self) -> dict:
+        """{key: (args, kwargs, outputs)} of each key's last launch that ran."""
+        stamps = self.stamps.cpu().tolist()
+        best: dict = {}
+        for i, entry in enumerate(self.entries):
+            if entry is not None and stamps[i] > 0 and stamps[i] > best.get(entry[0], (0,))[0]:
+                best[entry[0]] = (stamps[i], entry[1:])
+        return {k: v for k, (_, v) in best.items()}
+
+    def counts(self) -> dict:
+        """{key: launches that ran}."""
+        counted = self.counted.cpu().tolist()
+        return {k: counted[slot] for k, slot in self.keys.items()}
 
 
 def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
@@ -458,8 +544,13 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
             q_off, qd_src, qd_off = 6, 0, 12 + n
         else:
             q_off, qd_src, qd_off = 12, 1, 12
-        # warm: the first solve and controller call of a process are slow;
-        # then the controller alone, with no solver thread beside it
+        # the kernels' last launches in the solver thread, replays included
+        # (the graphed solves are captured by the warm solve below)
+        recorders = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda"),
+                     LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda")]
+        # warm: the first solve (its graphs' capture) and controller call of
+        # a process are slow; then the controller alone, with no solver
+        # thread beside it
         rt.advance(0.0, x0, np.zeros(4))
         warm_pol = rt.policy
         rt.reset()
@@ -473,8 +564,6 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
 
         # the solver thread's K1 on a reproducible input: the one solve of a
         # fresh pipeline from the fixed observation (t = 0, x0)
-        probe_cap = {}
-        restore = _capture_last_launch(riccati, "riccati_rollout_cuda", probe_cap, "K1")
         probe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
         probe.push_observation(0.0, x0, np.zeros(4))
         probe.start()
@@ -487,20 +576,18 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
                 time.sleep(0.01)
         finally:
             probe.stop(timeout=120.0)
-            restore()
         if probe.failed:
             raise AssertionError(f"mrt {form}: the solver failed ({probe.error!r})")
         rt.reset()
-        args, kwargs, got = probe_cap["K1"]
+        # the probe solve replayed the graphs: its last K1 launch, from the
+        # graph's copies of its inputs and outputs
+        args, kwargs, got = recorders[0].last()["K1"]
         torch.cuda.synchronize()
         e1_fixed, r1_fixed = k1_solver_err(
             got, riccati.riccati_rollout_plain(*args, **kwargs),
             f"mrt {form} K1 (solver thread, fixed observation)")
 
         record = _recording(rt, riccati, fkvel)
-        captured = {}
-        restore = [_capture_last_launch(riccati, "riccati_rollout_cuda", captured, "K1"),
-                   _capture_last_launch(fkvel, "fkvel_cuda", captured, "K2")]
         pipe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
         observer = PolicyObserver(pipe)
         starts, work, ctrl_ms, ages, past, tau_err = [], [], [], [], [], 0.0
@@ -553,8 +640,8 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
                     raise AssertionError(f"mrt {form}: {len(policies_seen)} policies in 120 s")
         finally:
             pipe.stop(timeout=120.0)
-            for r in restore:
-                r()
+            for r in recorders:
+                r.restore()
             del rt.advance   # the recording wrapper
         torch.cuda.synchronize()
         launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
@@ -589,6 +676,7 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
         # same inputs (which depend on the loop's wall-clock timing; the
         # fixed observation's K1 above is the reproducible check)
         same_bits = {}
+        captured = {**recorders[0].last(), **recorders[1].last()}
         args, kwargs, got = captured["K1"]
         again = riccati.riccati_rollout_cuda(*args, **kwargs)
         same_bits["K1"] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -635,7 +723,10 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
                    native_vs_controller=tau_err, relaunch_same_bits=same_bits,
                    launches=launches)
         out[form] = row
-        print(f"mrt {form}: {row['solves']} solves (p50 {row['solve_ms_p50']:.2f} ms), "
+        print(f"mrt {form} (graphed solves, captured by the warm solve in this thread and "
+              f"replayed by the solver thread; their graphs hold the K1/K2 recorders' copies, "
+              f"whose cost the graphs phase prints): {row['solves']} solves (p50 "
+              f"{row['solve_ms_p50']:.2f} ms), "
               f"{row['policies_seen']} policies seen by the control loop, "
               f"{row['ticks']} control ticks in {wall:.2f} s; tick period p50 "
               f"{row['tick_period_ms_p50']:.3f} ms p99 {row['tick_period_ms_p99']:.3f} ms max "
@@ -661,9 +752,11 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
     iteration: at B = 8 per instance against 8 unbatched solves and the
     kernel run against the plain run; then `batched_throughput` at B = 1, 8,
     64 and the largest B that fits by the peak memory of B = 8 and 64 (at
-    most 256), K1 launched once per batched iteration; K1's device time at
-    B = 8, 64 and the largest B against its bound; K2's last launch at each
-    of the sweep's row counts at B = 64 and the largest B against its plain
+    most 256), K1 launched once per batched iteration, K2's launches by row
+    count counted on the device (count-only, so the timing holds no
+    copies); K1's device time at B = 8, 64 and the largest B against its
+    bound; K2's last launch at each of those row counts at B = 64 and the
+    largest B, in a batched solve apart from the sweep, against its plain
     version, timed beside its bound. Adds K1's and K2's batched rows."""
     from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem
     from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
@@ -709,19 +802,20 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
           f"K1 {k1}, K2 {k2} launches in one batched iteration; K2 rows per launch "
           f"{B * N_NODES} (RK4 tail), {2 * B * N_NODES} (top-2 sweep)")
 
-    k2_caps = {}   # batch -> {rows: (args, kwargs, outputs) of the sweep's last K2 launch}
+    def rows_of(model, q, v):
+        return q.shape[0]
 
     def sweep(batch):
         for mod in (riccati, fkvel):
             mod.reset_launches()
         n_rounds = 5 if batch <= 8 else 3
-        caps, by_rows = {}, {}
-        restore = _capture_last_launch(fkvel, "fkvel_cuda", caps,
-                                       lambda model, q, v: q.shape[0], by_rows)
+        # count-only: the sweep's timing carries no copies
+        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_of, "cuda", keep=False)
         try:
             r = batched_throughput(batch, N_NODES, n_rounds=n_rounds, device="cuda")
         finally:
-            restore()
+            rec.restore()
+        by_rows = rec.counts()
         n_it = n_rounds + 1
         if riccati.LAUNCHES != n_it or not 6 * n_it <= fkvel.LAUNCHES <= 9 * n_it:
             raise AssertionError(f"batched B={batch}: K1 {riccati.LAUNCHES}, K2 "
@@ -731,10 +825,9 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
                                  f"{fkvel.LAUNCHES} counted")
         if not r["finite"]:
             raise AssertionError(f"batched B={batch}: non-finite cost")
-        k2_caps[batch] = caps
         r.update(k1_launches=riccati.LAUNCHES, k2_launches=fkvel.LAUNCHES, iterations=n_it,
                  k2_launches_by_rows=dict(sorted(by_rows.items())))
-        print(f"batched B={batch}: {r['instances_per_s']:.2f} instances/s, "
+        print(f"batched B={batch} (graphed): {r['instances_per_s']:.2f} instances/s, "
               f"{r['sqp_iterations_per_s']:.2f} SQP it/s ({r['round_time_s'] * 1e3:.2f} ms a "
               f"batched iteration); peak device memory {r['peak_memory_bytes'] / 2**20:.0f} MiB; "
               f"launches in {n_it} iterations K1 {riccati.LAUNCHES} K2 {fkvel.LAUNCHES} (by "
@@ -785,12 +878,30 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
               f"{sm_ms * 1e3:.1f} us | {card}")
     rows["riccati_batched"] = [k1_rows[b] for b in sorted(k1_rows)]
 
-    # K2 at the batched solve's row counts: the sweep's last launch at each
-    # row count, B = 64 and the largest B, against the plain version on the
-    # same inputs
+    # K2 at the batched solve's row counts, B = 64 and the largest B: the
+    # last launch of each row count in a batched solve of its own (its first
+    # call, whose eager warm-up runs the lower ladder, and one replay), whose
+    # recorder keeps copies of the launches, against the plain version on
+    # the same inputs
+    def last_k2_launches(batch):
+        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_of, "cuda")
+        solve_b = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+        x0s_b, traj_b, params_b, lam_b = batched_inputs(pb, batch, seed=0)
+        try:
+            first_b = solve_b(0.0, x0s_b, traj_b, params_b, lam_b)
+        finally:
+            rec.restore()
+        solve_b(0.0, x0s_b, first_b.traj, params_b, first_b.lam)
+        torch.cuda.synchronize()
+        caps = rec.last()
+        if set(caps) != set(report[batch]["k2_launches_by_rows"]):
+            raise AssertionError(f"batched B={batch}: K2 row counts {sorted(caps)}, in the "
+                                 f"sweep {sorted(report[batch]['k2_launches_by_rows'])}")
+        return caps
+
     k2_rows = []
     for batch in sorted({64, b_max}):
-        for n_rows, (args, kwargs, got) in sorted(k2_caps[batch].items()):
+        for n_rows, (args, kwargs, got) in sorted(last_k2_launches(batch).items()):
             model_, q, v = args
             got = list(got[0]) + list(got[1])
             fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
@@ -807,9 +918,9 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
                                 replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
                                 launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None))
-            print(f"K2 fkvel batch={batch} rows={n_rows} (the sweep's last launch of that "
-                  f"size, {launches} launches of it in {report[batch]['iterations']} "
-                  f"iterations): max|kernel-plain| {err:.3e} (atol {K2_TOL['atol']} rtol "
+            print(f"K2 fkvel batch={batch} rows={n_rows} (the last launch of that size in a "
+                  f"solve apart from the sweep; {launches} launches of it in the sweep's "
+                  f"{report[batch]['iterations']} iterations): max|kernel-plain| {err:.3e} (atol {K2_TOL['atol']} rtol "
                   f"{K2_TOL['rtol']}); kernel {t_dev * 1e3:.2f} us on the device; plain "
                   f"{t_p * 1e3:.1f} us per call; bound {b_ms * 1e3:.4f} us ({b_by}: "
                   f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} MFLOP), {100 * b_ms / t_dev:.2f} % "
@@ -847,12 +958,12 @@ def sharded_rank(cases) -> list:
 
     out = []
     for case in cases:
-        caps = {}
-        restore = _capture_last_launch(fkvel, "fkvel_cuda", caps, lambda model, q, v: q.shape[0])
+        rec = LaunchRecorder(fkvel, "fkvel_cuda", lambda model, q, v: q.shape[0], case["device"])
         try:
             r = sharded_sqp_case(**case)
         finally:
-            restore()
+            rec.restore()
+        caps = rec.last()
         r["k2_last"] = {} if r["coords"] != (0, 0) else {
             rows: ([a.cpu().numpy() for a in args[1:]],
                    [t.cpu().numpy() for t in list(got[0]) + list(got[1])])
@@ -972,6 +1083,202 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
     return report
 
 
+GRAPH_PAIRS = 10
+GRAPH_EAGER_SOLVES = (4, 3)      # (back to back, synced) eager solves in a pair's half
+GRAPH_GRAPHED_SOLVES = (20, 5)   # the same for the graphed solve
+
+
+def _rate_and_p50(torch, solve, pb, traj, lam, n_sus: int, n_lat: int):
+    """(sustained it/s of n_sus warm-started solves back to back with one
+    sync, p50 ms of n_lat synced solves, the last solution)."""
+    t0 = time.perf_counter()
+    for _ in range(n_sus):
+        sol = solve(0.0, pb.x0, traj, pb.params, lam)
+        traj, lam = sol.traj, sol.lam
+    torch.cuda.synchronize()
+    rate = n_sus / (time.perf_counter() - t0)
+    lat = []
+    for _ in range(n_lat):
+        t1 = time.perf_counter()
+        sol = solve(0.0, pb.x0, traj, pb.params, lam)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+        traj, lam = sol.traj, sol.lam
+    return rate, float(np.percentile(lat, 50)), sol
+
+
+def graph_device_ms(gs, inputs) -> dict:
+    """Device ms of one replay of each graph of the graph set gs, each timed
+    from the buffers loaded with inputs (t0, x0, traj, params, lam): every
+    replay of C takes the step again and moves the trajectory, so without
+    the load a graph would be timed on a state that earlier replays left."""
+    out = {}
+    for name, graph in gs.graphs.items():
+        gs.load(*inputs)
+        out[name] = kernel_device_ms(graph.replay, 10)
+    return out
+
+
+def graphs_phase(torch, riccati, fkvel, card: str) -> dict:
+    """The compiled solve against its eager twin on the main path
+    (humanoid23, N = 28, f32, one warm-started iteration a solve):
+    `make_sqp_solver` as a user gets it on the card (CUDA graphs) and with
+    `graphs=False`. The first graphed call's warm-up and capture seconds and
+    the memory the capture reserved; both solves on the same inputs, held at
+    SOLVE_TOL x max(1, max|ref|) with the same step (the same kernels on the
+    same values: expected 0); K1 and K2 per iteration under replay; the
+    device time of each graph (its replays queued behind a sleep kernel)
+    against the wall time of a synced iteration; the device time that the
+    K1/K2 recorders add to an iteration (fresh captures with copies,
+    count-only and without, twice in turns); and GRAPH_PAIRS pairs of eager
+    and graphed runs in turns (eager first in even pairs), each its
+    sustained it/s and synced p50, and the card's clocks after it."""
+    from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
+
+    pb = build_wb_problem(ASSETS / "humanoid23", N_NODES, device="cuda", dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=N_NODES, dt=pb.cfg.sqp.dt, sqp_iterations=1)
+    graphed = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+    eager = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda", graphs=False)
+    if not hasattr(graphed, "sets") or hasattr(eager, "sets"):
+        raise AssertionError("graphs: make_sqp_solver on the card did not return the graphed "
+                             "solve by default, or graphs=False did not return the eager one")
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    first = graphed(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (gs,) = graphed.sets.values()
+    if (riccati.LAUNCHES, fkvel.LAUNCHES) != (1, 9):
+        raise AssertionError(f"graphs: the first call (its eager warm-up iteration, the lower "
+                             f"ladder included) launched K1 {riccati.LAUNCHES}, K2 "
+                             f"{fkvel.LAUNCHES} times; expected 1 and 9")
+    if any(set(n) - {riccati.__name__, fkvel.__name__} for n in gs.held.values()):
+        raise AssertionError(f"graphs: the graphs hold launches of other kernels {gs.held}")
+    held = {name: dict(K1=n.get(riccati.__name__, 0), K2=n.get(fkvel.__name__, 0))
+            for name, n in gs.held.items()}
+    if held != {"A head": dict(K1=1, K2=6), "B low": dict(K1=0, K2=3),
+                "C tail": dict(K1=0, K2=0)}:
+        raise AssertionError(f"graphs: launches held by the graphs {held}")
+
+    # the same inputs through both: a warm start from the first solution
+    ref = eager(0.0, pb.x0, first.traj, pb.params, first.lam)
+    got = graphed(0.0, pb.x0, first.traj, pb.params, first.lam)
+    torch.cuda.synchronize()
+    err = scaled_err([got.traj.xs, got.traj.us], [ref.traj.xs, ref.traj.us], SOLVE_TOL,
+                     "graphs: graphed vs eager")
+    if float(got.step_size) != float(ref.step_size):
+        raise AssertionError(f"graphs: graphed step {float(got.step_size)}, eager "
+                             f"{float(ref.step_size)}")
+
+    # launches under replay
+    n_rep = 20
+    for mod in (riccati, fkvel):
+        mod.reset_launches()
+    traj, lam = got.traj, got.lam
+    for _ in range(n_rep):
+        sol = graphed(0.0, pb.x0, traj, pb.params, lam)
+        traj, lam = sol.traj, sol.lam
+    torch.cuda.synchronize()
+    k1_rep, k2_rep = riccati.LAUNCHES, fkvel.LAUNCHES
+    _expect_launches("graphs (replays)", "wb", k1_rep, k2_rep, n_rep)
+
+    # each graph's device time, replays queued behind a sleep kernel
+    inputs = (0.0, pb.x0, traj, pb.params, lam)
+    graph_ms = graph_device_ms(gs, inputs)
+    iteration_device_ms = graph_ms["A head"] + graph_ms["C tail"]
+    # and A once more on the state that C's timed replays left (no load):
+    # whether A's device time depends on the values it reads
+    a_moved_ms = kernel_device_ms(gs.graphs["A head"].replay, 10)
+
+    # what the recorders cost an iteration on the device: the same graphs
+    # captured afresh with K1's and K2's recorders installed, as the mrt and
+    # launch phases install them (copies of each launch), count-only, as
+    # the main path and the batched sweep do, and without any, twice in
+    # turns; the cost is the median with a recorder less the median without
+    recorder_runs = {"none": [], "copies": [], "count-only": []}
+    for kind in list(recorder_runs) * 2:
+        recs = ([] if kind == "none" else
+                [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda",
+                                keep=kind == "copies"),
+                 LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda", keep=kind == "copies")])
+        fresh = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+        try:
+            fresh(0.0, pb.x0, first.traj, pb.params, first.lam)
+        finally:
+            for rec in recs:
+                rec.restore()
+        (fs,) = fresh.sets.values()
+        ms = graph_device_ms(fs, inputs)
+        recorder_runs[kind].append(ms["A head"] + ms["C tail"])
+        del fresh, fs, recs
+    base = float(np.median(recorder_runs["none"]))
+    recorder_ms = {k: float(np.median(v)) - base for k, v in recorder_runs.items()
+                   if k != "none"}
+    print(f"graphs: device ms of A + C in fresh captures {recorder_runs}; the first "
+          f"capture's again {graph_device_ms(gs, inputs)}; its A on the state that C's "
+          f"timed replays left {a_moved_ms:.3f}; the card reads {clocks()} | {card}")
+
+    pairs = []
+    traj_e, lam_e, traj_g, lam_g = first.traj, first.lam, traj, lam
+    for i in range(GRAPH_PAIRS):
+        row = {}
+        for which in (("eager", "graphed") if i % 2 == 0 else ("graphed", "eager")):
+            k2 = fkvel.LAUNCHES
+            if which == "eager":
+                n = sum(GRAPH_EAGER_SOLVES)
+                rate, p50, sol = _rate_and_p50(torch, eager, pb, traj_e, lam_e,
+                                               *GRAPH_EAGER_SOLVES)
+                traj_e, lam_e = sol.traj, sol.lam
+            else:
+                n = sum(GRAPH_GRAPHED_SOLVES)
+                rate, p50, sol = _rate_and_p50(torch, graphed, pb, traj_g, lam_g,
+                                               *GRAPH_GRAPHED_SOLVES)
+                traj_g, lam_g = sol.traj, sol.lam
+            # K2 launches 6 times an iteration and 3 more where the lower
+            # ladder runs (graph B, or its eager sweep)
+            row[which] = dict(it_per_s=rate, p50_ms=p50, iterations=n,
+                              lower_ladder=(fkvel.LAUNCHES - k2 - 6 * n) // 3)
+        row["clocks"] = clocks()
+        pairs.append(row)
+        print(f"graphs pair {i}: eager {row['eager']['it_per_s']:.3f} it/s p50 "
+              f"{row['eager']['p50_ms']:.2f} ms, lower ladder in {row['eager']['lower_ladder']} "
+              f"of {row['eager']['iterations']} iterations; graphed "
+              f"{row['graphed']['it_per_s']:.3f} it/s p50 {row['graphed']['p50_ms']:.2f} ms, "
+              f"lower ladder in {row['graphed']['lower_ladder']} of "
+              f"{row['graphed']['iterations']}; after it the card read {row['clocks']} "
+              f"| {card}")
+    med = {w: {k: float(np.median([r[w][k] for r in pairs])) for k in ("it_per_s", "p50_ms")}
+           for w in ("eager", "graphed")}
+    spread = {w: [float(min(r[w]["it_per_s"] for r in pairs)),
+                  float(max(r[w]["it_per_s"] for r in pairs))] for w in ("eager", "graphed")}
+    out = dict(first_call_s=first_s, warmup_s=gs.warmup_s, capture_s=gs.capture_s,
+               pool_bytes=gs.pool_bytes, graphed_vs_eager_max_err=err,
+               k1_per_iteration=k1_rep / n_rep, k2_per_iteration=k2_rep / n_rep,
+               graph_device_ms=graph_ms, iteration_device_ms=iteration_device_ms,
+               recorder_device_ms_per_iteration=recorder_ms,
+               fresh_capture_device_ms=recorder_runs, a_on_moved_state_ms=a_moved_ms,
+               median=med, spread_it_per_s=spread, pairs=pairs)
+    print(f"graphs: first graphed call {first_s:.2f} s (eager warm-up iteration "
+          f"{gs.warmup_s:.2f} s, capture of {len(gs.graphs)} graphs {gs.capture_s:.3f} s); "
+          f"memory reserved by the capture {gs.pool_bytes / 2**20:.1f} MiB; launches held "
+          f"{held}; max|graphed - eager| {err:.3e} (limit {SOLVE_TOL} x max(1, max|ref|)), "
+          f"the same step; under replay K1 {k1_rep / n_rep:.2f} K2 {k2_rep / n_rep:.2f} per "
+          f"iteration | {card}")
+    print(f"graphs: device ms per replay A {graph_ms['A head']:.3f}, B {graph_ms['B low']:.3f}, "
+          f"C {graph_ms['C tail']:.3f}; an iteration without the lower ladder "
+          f"{iteration_device_ms:.3f} ms on the device against a synced wall p50 "
+          f"{med['graphed']['p50_ms']:.2f} ms ({100 * iteration_device_ms / med['graphed']['p50_ms']:.1f} "
+          f"% busy); the recorders add {recorder_ms['copies']:.4f} ms an iteration on the device "
+          f"with copies, {recorder_ms['count-only']:.4f} ms count-only; medians of "
+          f"{GRAPH_PAIRS} pairs: eager {med['eager']['it_per_s']:.3f} it/s "
+          f"p50 {med['eager']['p50_ms']:.2f} ms, graphed {med['graphed']['it_per_s']:.3f} it/s "
+          f"p50 {med['graphed']['p50_ms']:.2f} ms; it/s ranges eager {spread['eager']}, "
+          f"graphed {spread['graphed']} | {card}")
+    return out
+
+
 MUJOCO_Z_REF = 0.78321                # humanoid23's defaultBaseHeight
 MUJOCO_GATES = dict(min_height=0.75 * MUJOCO_Z_REF, max_drift=0.25)   # tests/test_mujoco_loop.py
 NO_MUJOCO = ("this machine has no mujoco, so the MuJoCo loop was held on the CPU tier only "
@@ -1005,9 +1312,8 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         csv_path = os.path.join(tmp, "observations.csv")
-        caps = {}
-        restores = [_capture_last_launch(riccati, "riccati_rollout_cuda", caps, "K1"),
-                    _capture_last_launch(fkvel, "fkvel_cuda", caps, "K2")]
+        recorders = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda"),
+                     LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda")]
         for mod in (riccati, fkvel):
             mod.reset_launches()
         t0 = time.perf_counter()
@@ -1017,8 +1323,9 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
                                str(N_NODES), "--log-csv", csv_path])
             torch.cuda.synchronize()
         finally:
-            for restore in restores:
-                restore()
+            for rec in recorders:
+                rec.restore()
+        caps = {**recorders[0].last(), **recorders[1].last()}
         wall = time.perf_counter() - t0
         k1, k2 = riccati.LAUNCHES, fkvel.LAUNCHES
         log = res["log"]
@@ -1047,7 +1354,9 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
                             launches={"K1": k1, "K2": k2}, k1_last_vs_plain=e1,
                             k2_last_vs_plain=e2, final_base_xy=res["final_base_xy"])
     print(f"launch dummy-sim wb: BenchmarksPublisher summary {json.dumps(summary)}")
-    print(f"launch dummy-sim wb: {len(log.times)} ticks (CSV rows) in {wall:.2f} s, "
+    print(f"launch dummy-sim wb (graphed solves, holding the K1/K2 recorders' copies): "
+          f"{len(log.times)} ticks (CSV rows) in "
+          f"{wall:.2f} s, "
           f"{len(log.times) / wall:.3f} ticks/s of wall time; launches in {n_it} SQP "
           f"iterations K1 {k1} K2 {k2}; last K1 vs plain {e1:.3e}, last K2 vs plain {e2:.3e} "
           f"| {card}")
@@ -1062,7 +1371,7 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     if not res["finite"]:
         raise AssertionError("launch bench-batched: non-finite cost")
     out["bench-batched"] = dict(res, launches={"K1": k1, "K2": k2})
-    print(f"launch bench-batched B=8: {res['instances_per_s']:.2f} instances/s, "
+    print(f"launch bench-batched B=8 (graphed): {res['instances_per_s']:.2f} instances/s, "
           f"{res['round_time_s'] * 1e3:.2f} ms a batched iteration; launches in 3 batched "
           f"iterations K1 {k1} K2 {k2} | {card}")
     return out
@@ -1104,7 +1413,8 @@ def bench_phase(torch, riccati, fkvel, card: str) -> dict:
     _expect_launches("bench", "wb", k1, k2, 1 + BENCH_TIMED + BENCH_SAMPLES)
     stderr = err_buf.getvalue().strip()
     print(lines[0])
-    print(f"bench: {stderr}; launches in {1 + BENCH_TIMED + BENCH_SAMPLES} solves K1 {k1} "
+    print(f"bench (graphed solve): {stderr}; launches in {1 + BENCH_TIMED + BENCH_SAMPLES} "
+          f"solves K1 {k1} "
           f"K2 {k2}; {wall:.2f} s in all | {card}")
 
     for mod in (riccati, fkvel):
@@ -1117,7 +1427,7 @@ def bench_phase(torch, riccati, fkvel, card: str) -> dict:
     n_it = 2 * (1 + 30)   # two points of 1 + n_rounds (30, batched_throughput's default)
     _expect_launches("scaling_report", "wb", sk1, sk2, n_it)
     for r in report:
-        print(f"scaling_report B={r['batch']}: {r['instances_per_s']:.2f} instances/s, "
+        print(f"scaling_report B={r['batch']} (graphed): {r['instances_per_s']:.2f} instances/s, "
               f"{r['sqp_iterations_per_s']:.2f} SQP it/s, {r['round_time_s'] * 1e3:.2f} ms a "
               f"batched iteration | {card}")
     return {"line": res, "stderr": stderr, "wall_s": wall, "launches": {"K1": k1, "K2": k2},
@@ -1444,12 +1754,23 @@ def main() -> int:
     scfg = SqpSolverConfig(n_nodes=N_NODES, dt=pb.cfg.sqp.dt, sqp_iterations=1)
     solve = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, scfg, device="cuda")
     print(f"main path: humanoid23 nx {pb.model.state_dim} nu {pb.model.input_dim} "
-          f"n_eq {pb.ocp.n_eq} N {N_NODES}, stance, f32")
+          f"n_eq {pb.ocp.n_eq} N {N_NODES}, stance, f32, graphed solve (make_sqp_solver's "
+          f"default on the card; the first call captures)")
 
+    # the counts above are the wrappers' (a replay adds what its graph
+    # recorded at capture); count-only recorders count the same launches on
+    # the device, in the graphs (one one-element add a launch, kept alive
+    # with the solve since its graphs write to them)
+    counters = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda", keep=False),
+                LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda", keep=False)]
     fkvel.reset_launches()
     riccati.reset_launches()
     t0 = time.perf_counter()
-    sol = solve(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    try:
+        sol = solve(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    finally:
+        for rec in counters:
+            rec.restore()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     traj = sol.traj
@@ -1468,6 +1789,10 @@ def main() -> int:
         lat.append(time.perf_counter() - t1)
         traj = sol.traj
     launches = {"riccati": riccati.LAUNCHES, "fkvel": fkvel.LAUNCHES}
+    on_device = {"riccati": counters[0].counts()["K1"], "fkvel": counters[1].counts()["K2"]}
+    if on_device != launches:
+        raise AssertionError(f"main path: the wrappers counted {launches}, the device "
+                             f"{on_device}")
     n_iter = 1 + n_sustained + 10
     p50 = float(np.percentile(lat, 50))
     cost, g_norm = float(sol.cost), float(sol.g_norm)
@@ -1480,9 +1805,9 @@ def main() -> int:
                              f"(expected 6 to 9 per iteration)")
     print(f"main path: first solve {t_first:.2f} s; cost {cost:.6g} g_norm {g_norm:.3e} "
           f"step {float(sol.step_size)}; launches in {n_iter} iterations: K1 "
-          f"{launches['riccati']}, K2 {launches['fkvel']}")
+          f"{launches['riccati']}, K2 {launches['fkvel']} (the same counted on the device)")
     print(f"main path: sustained {sustained:.2f} SQP it/s, per-call p50 {p50 * 1e3:.2f} ms "
-          f"| {card}")
+          f"(graphs holding the device counters' adds) | {card}")
 
     # the same solve on the plain versions, on the card
     plain = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp,
@@ -1504,6 +1829,10 @@ def main() -> int:
 
     rows["riccati"]["launches"] = launches["riccati"]
     rows["fkvel"]["launches"] = launches["fkvel"]
+
+    # ---- 5b. the compiled solve against its eager twin ----
+    compiled = graphs_phase(torch, riccati, fkvel, card)
+    print(json.dumps({"graphs": compiled, "card": card}))
 
     # ---- 6. K3: the forward rollout alone ----
     def stage_tensors(seed, N, nx, nu, dtype=torch.float32, batch=None):
@@ -1674,7 +2003,8 @@ def main() -> int:
             raise AssertionError(f"{cname}: kernels took step {float(got.step_size)}, plain "
                                  f"versions {float(ref.step_size)}")
         config_rates[cname] = rate
-        print(f"{cname}: cost {float(got.cost):.6g} g_norm {float(got.g_norm):.3e} step "
+        mode = "graphed" if hasattr(solve_k, "sets") else "eager"
+        print(f"{cname} ({mode}): cost {float(got.cost):.6g} g_norm {float(got.g_norm):.3e} step "
               f"{float(got.step_size)}; vs plain max|dxs| {errs[0]:.3e} |dus| {errs[1]:.3e} "
               f"|dlam| {errs[2]:.3e}; launches in {n} solves {seen}; first solve "
               f"{t_first:.2f} s; sustained {rate:.3f} it/s; peak device memory "

@@ -16,7 +16,10 @@ CLI's `dummy-sim` and, where the machine has mujoco, a short MuJoCo loop
 run on the card with their launch counts checked; so does the bench entry
 (`tools.bench.main`, N = 28); `solver/priccati.py::_combine` on the card
 gives the CPU's non-finite pattern on a singular combine matrix, without a
-raise. Needs an
+raise. The compiled solve (`solver/graphs.py`): graphed against eager on
+the main path, t0 read at every replay, the recapture after a gain update,
+the launch counters under replay, a failed capture raising, and the MRT
+solver thread capturing beside the controller. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -526,3 +529,230 @@ def test_combine_on_the_card(card):
         assert not torch.isfinite(b[:2]).all() and torch.isfinite(b[2]).all(), name
         ok = torch.isfinite(b)
         torch.testing.assert_close(a[ok], b[ok], rtol=0.0, atol=1e-12, msg=name)
+
+
+# ---- the compiled solve (`solver/graphs.py`): CUDA graphs around the SQP solve ----
+
+class _TimedOcp:
+    """Mixin: every stage and terminal residual shifted by 0.05 sin(t), so that
+    a solve at another time than its call's t0 (a time baked into a graph)
+    changes the answer (tests/_graphs_cases.py does the same on the CPU)."""
+
+    def fused_node(self, t, x, u, p):
+        terms, xdot = super().fused_node(t, x, u, p)
+        return terms._replace(r=terms.r + 0.05 * torch.sin(t)[..., None]), xdot
+
+    def terminal_residual(self, t, x, p):
+        return super().terminal_residual(t, x, p) + 0.05 * torch.sin(t)[..., None]
+
+
+def _graphed_and_eager(card, n_nodes, timed=False, **fields):
+    from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WholeBodyOcp
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_sqp_solver
+
+    pb = build_wb_problem(ASSETS / "humanoid23", n_nodes, device=card, dtype=torch.float32)
+    ocp = pb.ocp
+    if timed:
+        ocp = type("TimedWholeBodyOcp", (_TimedOcp, WholeBodyOcp), {})(model=pb.model,
+                                                                       cfg=pb.cfg)
+    cfg = SqpSolverConfig(n_nodes=n_nodes, dt=pb.cfg.sqp.dt, **fields)
+    graphed = make_sqp_solver(ocp, pb.model.flow_map, pb.bp, cfg, device=card)
+    eager = make_sqp_solver(ocp, pb.model.flow_map, pb.bp, cfg, device=card, graphs=False)
+    assert isinstance(graphed, GraphedSqpSolve) and not isinstance(eager, GraphedSqpSolve)
+    return pb, graphed, eager
+
+
+def _max_scaled(got, ref):
+    """(the largest ratio of max |got - ref| to its limit 2e-3 x max(1,
+    max|ref|), each of xs and us against its own scale; a line that gives
+    each field's error and limit)."""
+    ratio, parts = 0.0, []
+    for what, a, b in (("xs", got.traj.xs, ref.traj.xs), ("us", got.traj.us, ref.traj.us)):
+        err = float((a - b).abs().max())
+        limit = 2e-3 * max(1.0, float(b.abs().max()))
+        ratio = max(ratio, err / limit)
+        parts.append(f"{what} {err:.3e} (limit {limit:.3e})")
+    return ratio, ", ".join(parts)
+
+
+def _moved(a, b):
+    """max |a - b| over xs and us of two solutions."""
+    return max(float((a.traj.xs - b.traj.xs).abs().max()),
+               float((a.traj.us - b.traj.us).abs().max()))
+
+
+def test_graphed_solve_matches_eager_on_the_card(card):
+    """The main path's solve (humanoid23, N = 28, f32, one iteration) as CUDA
+    graphs against its eager twin on the same inputs, twice (the capturing
+    call and a replaying one): 2e-3 x max(1, max|ref|), the same step; the
+    maximum is printed (the same kernels on the same values: expected 0)."""
+    pb, graphed, eager = _graphed_and_eager(card, 28, sqp_iterations=1)
+    traj, lam = pb.traj, pb.lam
+    for call in ("capture", "replay"):
+        got = graphed(0.0, pb.x0, traj, pb.params, lam)
+        ref = eager(0.0, pb.x0, traj, pb.params, lam)
+        ratio, line = _max_scaled(got, ref)
+        print(f"graphed vs eager ({call}): max|d| {line}")
+        assert ratio <= 1.0, line
+        assert float(got.step_size) == float(ref.step_size)
+        traj, lam = got.traj, got.lam
+
+
+def test_graphed_solve_reads_t0_at_every_replay(card):
+    """t0 is a buffer the graphs read: on a time-dependent OCP, replays at
+    t0 = 0.5 and 0.9 after a capture at 0 give the eager solve at those
+    times, not at the capture's: their distance to it is within 2e-3 x
+    max(1, max|ref|) and under a thousandth of what the change of t0 moves
+    the solution."""
+    pb, graphed, eager = _graphed_and_eager(card, 6, timed=True, sqp_iterations=2)
+    at0 = graphed(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    for t0 in (0.5, 0.9):
+        got = graphed(t0, pb.x0, pb.traj, pb.params, pb.lam)
+        ref = eager(t0, pb.x0, pb.traj, pb.params, pb.lam)
+        ratio, line = _max_scaled(got, ref)
+        err, moved = _moved(got, ref), _moved(got, at0)
+        print(f"t0 {t0}: graphed vs eager {line}; moved by the change of t0 {moved:.3e}")
+        assert ratio <= 1.0, f"t0 {t0}: {line}"
+        assert err <= 1e-3 * moved, f"t0 {t0}: {err:.3e} against a move of {moved:.3e}"
+
+
+def test_gains_rebuild_recaptures(card):
+    """A gain update drops the runtime's graphed solve and the recovery
+    solve that shares its graphs (they read the old weights), and the next
+    solve captures new ones. On the call the runtime made after the update,
+    the new graphs equal an eager solve of the updated OCP within 2e-3 x
+    max(1, max|ref|) of each field, and their distance to it is under a
+    thousandth of what doubling Q moves the solution (an eager solve of an
+    OCP built with the old weights on the same call)."""
+    from wb_humanoid_mpc_tpu_torch.interface import build_wb_mpc, mpc_files
+    from wb_humanoid_mpc_tpu_torch.mpc.gains import GainUpdate
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_sqp_solver
+
+    files = mpc_files(ASSETS / "humanoid23", "wb")
+    mpc = build_wb_mpc(*files, n_nodes=6, device=card)
+    before = build_wb_mpc(*files, n_nodes=6, device=card)   # keeps the old weights
+    rt = mpc.runtime
+    x = np.asarray(mpc.initial_state, dtype=float)
+    rt.advance(0.0, x, np.zeros(4))
+    old = rt.solve_fn
+    assert isinstance(old, GraphedSqpSolve) and len(old.sets) == 1
+    assert rt.recovery_solve_fn.sets is old.sets and rt.recovery_solve_fn.iterations == 12
+    mpc.gains.apply(GainUpdate(term="Q", values=2.0 * np.asarray(mpc.cfg.Q)))
+    assert rt.solve_fn is not old and not old.sets and not rt.solve_fn.sets
+    assert rt.recovery_solve_fn.sets is rt.solve_fn.sets
+    new = rt.solve_fn
+    cfg, bp = new.it.cfg, mpc.ocp.barrier_params(card, torch.float32)
+    eager = make_sqp_solver(mpc.ocp, mpc.model.flow_map, bp, cfg, device=card, graphs=False)
+    calls = []
+    orig = new.__call__
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    rt.solve_fn = spy
+    rt.advance(0.04, x, np.zeros(4))
+    assert len(new.sets) == 1
+    got = orig(*calls[0])
+    ref = eager(*calls[0])
+    old_ref = make_sqp_solver(before.ocp, before.model.flow_map,
+                              before.ocp.barrier_params(card, torch.float32), cfg, device=card,
+                              graphs=False)(*calls[0])
+    ratio, line = _max_scaled(got, ref)
+    err, moved = _moved(got, ref), _moved(got, old_ref)
+    print(f"gains rebuild: graphed vs eager {line}; moved by doubling Q {moved:.3e}")
+    assert ratio <= 1.0, line
+    assert err <= 1e-3 * moved, f"{err:.3e} against a move of {moved:.3e}"
+
+
+def test_graphed_launch_counters_advance_per_replay(card):
+    """K1 and K2 count every launch a replay makes, as the eager twin's
+    wrappers do on the same calls: K1 once per iteration, K2 6 to 9 times,
+    the two counts equal."""
+    pb, graphed, eager = _graphed_and_eager(card, 28, sqp_iterations=2)
+    graphed(0.0, pb.x0, pb.traj, pb.params, pb.lam)   # capture
+    counts = []
+    for solve in (graphed, eager):
+        riccati.reset_launches()
+        fkvel.reset_launches()
+        traj, lam = pb.traj, pb.lam
+        for _ in range(3):
+            sol = solve(0.0, pb.x0, traj, pb.params, lam)
+            traj, lam = sol.traj, sol.lam
+        torch.cuda.synchronize()
+        counts.append((riccati.LAUNCHES, fkvel.LAUNCHES))
+    assert counts[0] == counts[1], counts
+    assert counts[0][0] == 6 and 36 <= counts[0][1] <= 54, counts
+
+
+def test_graph_capture_failure_raises(card, monkeypatch):
+    """An operation that reads the device inside a piece of the iteration
+    (here `.item()` in the damping) makes the capture fail: the solve
+    raises, naming the operation, and does not run eagerly instead."""
+    from wb_humanoid_mpc_tpu_torch.solver import sqp
+
+    orig = sqp.levenberg_damp
+
+    def reads_the_device(lq, reg):
+        if float(lq.Quu.abs().max().item()) < 0:
+            raise AssertionError("unreachable")
+        return orig(lq, reg)
+
+    monkeypatch.setattr(sqp, "levenberg_damp", reads_the_device)
+    pb, graphed, _ = _graphed_and_eager(card, 6, sqp_iterations=1)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the SQP iteration's A head "
+                                           "failed at .*reads_the_device"):
+        graphed(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    (gs,) = graphed.sets.values()
+    assert not gs.graphs
+    torch.cuda.synchronize()
+
+
+def test_graphed_mrt_pipeline_captures_beside_the_controller(card):
+    """The MRT solver thread captures its graphs while this thread runs the
+    500 Hz loop with `WBMrtController` on its own stream (thread-local
+    capture), then replays them: policies come, no failure."""
+    import threading
+    import time
+
+    from wb_humanoid_mpc_tpu_torch.interface import build_wb_mpc, mpc_files
+    from wb_humanoid_mpc_tpu_torch.mpc.async_runtime import MrtPipeline
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import WBMrtController
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphSet
+
+    mpc = build_wb_mpc(*mpc_files(ASSETS / "humanoid23", "wb"), n_nodes=6, device=card)
+    ctrl = WBMrtController(mpc.model, device=card)
+    threads = []
+    orig = GraphSet._capture_all
+
+    def capture_all(self):
+        threads.append(threading.current_thread().name)
+        orig(self)
+
+    GraphSet._capture_all = capture_all
+    x = np.asarray(mpc.initial_state, dtype=float)
+    pipe = MrtPipeline(mpc.runtime, nx=x.shape[0], device=card)
+    pipe.start()
+    ticks = 0
+    try:
+        t_start = time.perf_counter()
+        while (time.perf_counter() - t_start < 3.0 or pipe.solve_count < 3) and not pipe.failed:
+            if time.perf_counter() - t_start > 60.0:
+                break
+            t = 0.002 * ticks
+            pipe.push_observation(t, x, np.zeros(4))
+            pol = pipe.get_policy()
+            ctrl.compute(t, x, pol)
+            if pol is not None:
+                x = np.asarray(pol.evaluate(t + 0.002)[0], dtype=float)
+            ticks += 1
+            time.sleep(max(0.0, t_start + 0.002 * ticks - time.perf_counter()))
+    finally:
+        GraphSet._capture_all = orig
+        pipe.stop(timeout=60.0)
+    assert not pipe.failed, pipe.error
+    assert pipe.solve_count >= 3 and ticks > pipe.solve_count
+    assert threads and set(threads) == {"mpc-solver"}, threads
+    assert len(mpc.runtime.solve_fn.sets) == 1

@@ -34,6 +34,7 @@ from wb_humanoid_mpc_tpu_torch.parallel.horizon import horizon_sharded_lq_solve
 from wb_humanoid_mpc_tpu_torch.parallel.multihost import make_mpc_mesh, run_ranks
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
+from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import make_sharded_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     SqpSolverConfig,
@@ -380,3 +381,41 @@ def test_every_public_jax_name_has_a_counterpart():
     assert missing == []
     assert pallas == ["ops/fkvel.py::pallas_fkvel", "ops/riccati.py::pallas_riccati_rollout",
                       "ops/rollout.py::pallas_forward_rollout"]
+
+
+# ---- the compiled solve (`solver/graphs.py`) ----
+
+def test_graphs_on_the_cpu_raise(toy_problem):
+    """graphs=True asks for CUDA graphs: on the CPU it raises instead of
+    solving eagerly; graphs=None (the default) solves eagerly there."""
+    pb = toy_problem
+    cfg = SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu", graphs=True)
+    solve = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")
+    assert not isinstance(solve, GraphedSqpSolve)
+
+
+def test_graphed_entry_points_default_to_the_card_and_graphs():
+    """`make_sqp_solver` defaults to the card and to graphs there; the
+    batched solve takes its default (no keyword of its own)."""
+    params = inspect.signature(make_sqp_solver).parameters
+    assert params["device"].default == "cuda" and params["graphs"].default is None
+    params = inspect.signature(make_batched_solver).parameters
+    assert params["device"].default == "cuda" and "graphs" not in params
+
+
+def test_graphs_module_imports_no_jax():
+    """`solver/graphs.py` alone, in a fresh interpreter: no JAX module and no
+    module of the JAX package is loaded, no kernel is built."""
+    assert "wb_humanoid_mpc_tpu_torch.solver.graphs" in _port_modules()
+    code = ("import json, sys\n"
+            "import wb_humanoid_mpc_tpu_torch.solver.graphs\n"
+            "from wb_humanoid_mpc_tpu_torch.ops import _lib\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'wb_humanoid_mpc_tpu'))\n"
+            "print(json.dumps({'bad': bad, 'built': sorted(_lib._state)}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "built": []}

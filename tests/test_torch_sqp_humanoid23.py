@@ -74,3 +74,33 @@ def test_humanoid23_iteration_matches_jax(jax_solution):
         assert err <= limit, f"humanoid23 N={N} f64 {name}: {err:.3e} > {limit:.3e}"
     assert float(sol.step_size) == float(ref[4])
     assert np.isfinite(got[2]) and sol.iterations == 1
+
+
+def test_humanoid23_graphed_runner_matches_eager_and_jax(jax_solution):
+    """The compiled solve's static-buffer runner with capture off
+    (`solver/graphs.py`; a CPU has no CUDA graphs) on the same iteration:
+    bit for bit the eager solve, and JAX's at the tolerance above."""
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpIteration
+
+    pb = build_wb_problem(ASSETS / "humanoid23", N, device="cpu", dtype=torch.float64,
+                          swing=stance_reference(N))
+    cfg = SqpSolverConfig(n_nodes=N, dt=pb.cfg.sqp.dt, sqp_iterations=1)
+    eager = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")
+    split = GraphedSqpSolve(SqpIteration(pb.ocp, pb.model.flow_map, pb.bp, cfg),
+                            torch.device("cpu"), capture=False)
+    a = eager(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    b = split(0.0, pb.x0, pb.traj, pb.params, pb.lam)
+    for name, x, y in (("xs", a.traj.xs, b.traj.xs), ("us", a.traj.us, b.traj.us),
+                       ("lam", a.lam, b.lam), ("cost", a.cost, b.cost),
+                       ("g_norm", a.g_norm, b.g_norm), ("defect_norm", a.defect_norm,
+                                                         b.defect_norm),
+                       ("step_size", a.step_size, b.step_size)):
+        assert torch.equal(x, y), f"humanoid23 runner vs eager {name}"
+    got = to_numpy((b.traj.xs, b.traj.us, b.cost, b.g_norm))
+    for name, x, ref in zip(("traj.xs", "traj.us", "cost", "g_norm"), got, jax_solution[:4]):
+        ref = np.asarray(ref, np.float64)
+        limit = TOL * max(1.0, float(np.abs(ref).max()))
+        err = float(np.abs(np.asarray(x, np.float64) - ref).max())
+        assert err <= limit, f"humanoid23 runner {name}: {err:.3e} > {limit:.3e}"
+    assert float(b.step_size) == float(jax_solution[4])

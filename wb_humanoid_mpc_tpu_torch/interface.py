@@ -45,6 +45,7 @@ from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams, WholeBodyOcp, mak
 from wb_humanoid_mpc_tpu_torch.refs.manager import MotionManager, SolveReferences
 from wb_humanoid_mpc_tpu_torch.refs.swing import SwingReference
 from wb_humanoid_mpc_tpu_torch.refs.targets import CentroidalTargetCalculator, WBTargetCalculator
+from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
@@ -220,9 +221,13 @@ def _assemble(cfg, model, ocp, joints, calc, joint_start, n_nodes, dt, horizon, 
     recovery_cfg = dataclasses.replace(solver_cfg, sqp_iterations=12)
 
     def solvers():
+        # on the card the solve runs as CUDA graphs, captured at its first
+        # call; the recovery solve replays the same graphs 12 times
         bp = ocp.barrier_params(dev, dtype)
-        return (make_sqp_solver(ocp, model.flow_map, bp, solver_cfg, device=dev),
-                make_sqp_solver(ocp, model.flow_map, bp, recovery_cfg, device=dev))
+        solve = make_sqp_solver(ocp, model.flow_map, bp, solver_cfg, device=dev)
+        if isinstance(solve, GraphedSqpSolve):
+            return solve, solve.with_iterations(recovery_cfg.sqp_iterations)
+        return solve, make_sqp_solver(ocp, model.flow_map, bp, recovery_cfg, device=dev)
 
     robot = model.robot
     u_default = weight_comp_input(robot.total_mass, robot.gravity,
@@ -237,7 +242,11 @@ def _assemble(cfg, model, ocp, joints, calc, joint_start, n_nodes, dt, horizon, 
     def _rebuild():
         # live gain re-tuning (reference `GainsReceiver.cpp:44`): the OCP's
         # weight tensors are rebuilt from the mutated cfg, and both solvers
-        # with them
+        # with them; the old solvers' graphs (the recovery solve shares
+        # them) read the old tensors, so they are dropped, and the new
+        # solvers capture anew
+        if isinstance(runtime.solve_fn, GraphedSqpSolve):
+            runtime.solve_fn.release()
         ocp._cache.clear()
         runtime.solve_fn, runtime.recovery_solve_fn = solvers()
 

@@ -14,6 +14,10 @@ newest policy through `MPC_MRT_Interface`), over the seqlock buffers of
   update!!"), and the controller then gets no policy (its weight-compensating
   fallback). The solver thread selects the runtime's CUDA device before its
   first operation and launches the kernels on that thread's current stream.
+  On the card the runtime's solves are CUDA graphs, captured by this thread
+  at their first call while the control loop runs: the capture is
+  thread-local (`solver/graphs.py`), so the controller's work on its own
+  stream in the other thread neither waits for it nor breaks it.
 - `PolicyObserver`: a read-only subscriber of the policy plane.
 - `SimulatedLatencyMpc`: deterministic variant on the sim clock: a solve
   dispatched at sim time t becomes active at t + solve_latency.

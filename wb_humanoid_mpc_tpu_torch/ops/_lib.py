@@ -8,6 +8,15 @@ loaded on the first call that needs a kernel. The build lands in
 that hashes the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing here runs at import time: the CPU tests
 import every module of the port on a machine without `nvcc`.
+
+It also keeps the launch counts. Each kernel wrapper module registers itself
+(`register_counter(__name__)`), which gives it two plain counts: LAUNCHES,
+its kernel's launches since its last reset (read by chip_smoke.py and the
+tests), and RECORDED, the launches recorded into CUDA graphs. A wrapper
+counts where it launches, through `count_launch`; under graph capture that
+counts in RECORDED, and `solver/graphs.py` adds what a graph recorded
+(`recorded()` before and after its capture) to LAUNCHES at each replay
+(`add_replayed`).
 """
 
 from __future__ import annotations
@@ -17,10 +26,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
 from pathlib import Path
+from types import ModuleType
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +43,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _lock = threading.Lock()
 _state: dict = {}
+COUNTERS: dict[str, ModuleType] = {}   # module name -> a registered kernel wrapper module
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -136,3 +150,37 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} "
                            f"({lib.wbmpc_error_string(code).decode()})")
+
+
+def register_counter(module_name: str) -> None:
+    """Give the kernel wrapper module `module_name` (being imported) its
+    LAUNCHES and RECORDED counts."""
+    module = sys.modules[module_name]
+    module.LAUNCHES = module.RECORDED = 0
+    COUNTERS[module_name] = module
+
+
+def reset_launches(module_name: str) -> None:
+    COUNTERS[module_name].LAUNCHES = 0
+
+
+def count_launch(module_name: str) -> None:
+    """Count one launch of a registered wrapper's kernel: in RECORDED while
+    the current stream is capturing a CUDA graph (the launch is recorded,
+    not run), else in LAUNCHES."""
+    module = COUNTERS[module_name]
+    if torch.cuda.is_current_stream_capturing():
+        module.RECORDED += 1
+    else:
+        module.LAUNCHES += 1
+
+
+def recorded() -> dict[str, int]:
+    """{module name: RECORDED} of every registered wrapper."""
+    return {name: module.RECORDED for name, module in COUNTERS.items()}
+
+
+def add_replayed(held: dict[str, int]) -> None:
+    """Count the launches {module name: n} that a graph's replay made."""
+    for name, n in held.items():
+        COUNTERS[name].LAUNCHES += n

@@ -30,13 +30,11 @@ from wb_humanoid_mpc_tpu_torch.models.kinematics import (
 from wb_humanoid_mpc_tpu_torch.models.robot.urdf import RobotModel
 from wb_humanoid_mpc_tpu_torch.ops import _lib
 
-# kernel launches since the last reset (a plain count, read by chip_smoke.py)
-LAUNCHES = 0
+_lib.register_counter(__name__)   # LAUNCHES and RECORDED (`ops/_lib.py`)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    _lib.reset_launches(__name__)
 
 
 def fkvel_plain(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK, VelBias]:
@@ -122,8 +120,7 @@ def fkvel_cuda(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK,
               R.data_ptr(), p.data_ptr(), vb.data_ptr(), axes.data_ptr(), E.data_ptr(), B, n_j,
               n_levels, stream)
     _lib.check(lib, code, "fkvel kernel")
-    global LAUNCHES
-    LAUNCHES += 1
+    _lib.count_launch(__name__)
     fk = FK(R=R, p=p, joint_axis_w=axes, joint_origin_w=p[:, 1:], E_base=E)
     vel = VelBias(*vb.unbind(2))   # rows v_o, omega, a_o, domega
     return fk, vel

@@ -24,15 +24,13 @@ import torch
 from wb_humanoid_mpc_tpu_torch.ops import _lib
 from wb_humanoid_mpc_tpu_torch.solver.riccati import backward_pass, forward_pass
 
-# kernel launches since the last reset (a plain count, read by chip_smoke.py)
-LAUNCHES = 0
+_lib.register_counter(__name__)   # LAUNCHES and RECORDED (`ops/_lib.py`)
 
 _FIELDS = ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu", "QN", "qN", "dx0")
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    _lib.reset_launches(__name__)
 
 
 def riccati_rollout_plain(A, B, d, Qxx, Quu, Qux, qx, qu, QN, qN, dx0, reg: float = 1e-8):
@@ -80,8 +78,7 @@ def riccati_rollout_cuda(A, B, d, Qxx, Quu, Qux, qx, qu, QN, qN, dx0, reg: float
     code = fn(*(a.data_ptr() for a in ins), K.data_ptr(), k.data_ptr(), dxs.data_ptr(),
               dus.data_ptr(), batch, N, nx, nu, float(reg), stream)
     _lib.check(lib, code, "riccati kernel")
-    global LAUNCHES
-    LAUNCHES += 1
+    _lib.count_launch(__name__)
     return K, k, dxs, dus
 
 

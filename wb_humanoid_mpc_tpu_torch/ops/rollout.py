@@ -36,16 +36,14 @@ import torch
 from wb_humanoid_mpc_tpu_torch.ops import _lib
 from wb_humanoid_mpc_tpu_torch.solver.riccati import forward_pass
 
-# kernel launches since the last reset (a plain count, read by chip_smoke.py)
-LAUNCHES = 0
+_lib.register_counter(__name__)   # LAUNCHES and RECORDED (`ops/_lib.py`)
 
 _FIELDS = ("A", "B", "d", "K", "k", "dx0")
 _ALIASES = {"pallas": "cuda", "scan": "plain"}
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    _lib.reset_launches(__name__)
 
 
 def forward_rollout_plain(A, B, d, K, k, dx0):
@@ -110,8 +108,7 @@ def forward_rollout_cuda(A, B, d, K, k, dx0):
     code = fn(*(a.data_ptr() for a in ins), dxs.data_ptr(), dus.data_ptr(), batch, N, nx, nu,
               stream)
     _lib.check(lib, code, "forward rollout kernel")
-    global LAUNCHES
-    LAUNCHES += 1
+    _lib.count_launch(__name__)
     return dxs, dus
 
 

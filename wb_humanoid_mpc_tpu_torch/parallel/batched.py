@@ -31,7 +31,9 @@ from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 def make_batched_solver(ocp, flow, bp, cfg: SqpSolverConfig, *, device="cuda") -> Callable:
     """solve_batched(t0, x0 [B, nx], init_traj [B, ...], params [B, N+1, ...],
     lam [B, N, n_eq]) -> SqpSolution with a leading B on every field but
-    `iterations`. t0 is shared by the instances, as JAX's `in_axes=None`."""
+    `iterations`. t0 is shared by the instances, as JAX's `in_axes=None`.
+    On the card the solve runs as CUDA graphs, one graph set per B
+    (`make_sqp_solver`'s default)."""
     solve = make_sqp_solver(ocp, flow, bp, cfg, device=device)
     N = cfg.n_nodes
 

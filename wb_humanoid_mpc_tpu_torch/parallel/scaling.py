@@ -5,7 +5,8 @@
 PyTorch counterpart of `batched_throughput` and `scaling_report` in
 `wb_humanoid_mpc_tpu/parallel/scaling.py`: batched SQP iterations/s at
 increasing batch sizes, on one device or across the `dp` axis of a rank
-mesh (`shard_batched_solver`). The problem is `bench.py`'s stance
+mesh (`shard_batched_solver`); on the card each batch size's solve runs
+as CUDA graphs, captured at its first call. The problem is `bench.py`'s stance
 problem built by `interface.build_wb_problem` on `assets/humanoid23`; each
 instance starts from its own perturbed x0. `scaling_report` records a
 batch that fails (a device out of memory, for one) and stops there, as
@@ -109,21 +110,22 @@ def scaling_report(batches=(1, 8, 64, 256, 1024), n_nodes: int = 28,
     """`batched_throughput` at each batch size, in order. A point that fails
     (`torch.cuda.OutOfMemoryError` or any other error) is recorded as
     {"batch", "n_nodes", "error"} (the error's first line, at most 200
-    characters) and ends the sweep; the CUDA cache is freed before the
-    report returns."""
+    characters) and ends the sweep; the CUDA cache is freed after each
+    point."""
     out = []
-    try:
-        for b in batches:
-            try:
-                out.append(batched_throughput(b, n_nodes, solver_overrides=solver_overrides,
-                                              device=device, dtype=dtype))
-            except Exception as e:  # noqa: BLE001 -- record OOM and other failures
-                out.append({"batch": b, "n_nodes": n_nodes,
-                            "error": (str(e).splitlines() or [type(e).__name__])[0][:200]})
-                break
-    finally:
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+    for b in batches:
+        try:
+            out.append(batched_throughput(b, n_nodes, solver_overrides=solver_overrides,
+                                          device=device, dtype=dtype))
+        except Exception as e:  # noqa: BLE001 -- record OOM and other failures
+            out.append({"batch": b, "n_nodes": n_nodes,
+                        "error": (str(e).splitlines() or [type(e).__name__])[0][:200]})
+            break
+        finally:
+            # the point's solver, its graphs and their pool are gone: hand
+            # their memory back before the next batch size
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
     return out
 
 

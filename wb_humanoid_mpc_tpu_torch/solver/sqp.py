@@ -25,8 +25,12 @@ instances go through one linearization, one K1 launch over the batch and one
 K2 launch per flow stage over instances x nodes; costs, norms and the
 accepted step are per instance.
 
-JAX fuses an iteration into one XLA program; the port runs eagerly (no
-`torch.compile`, no CUDA graphs yet).
+JAX runs a whole solve as one XLA program under `jax.jit`. The port splits
+an iteration at its only host sync (`SqpIteration`: head, the filter's lower
+ladder, tail) and, on a CUDA device, captures the pieces into CUDA graphs
+once per problem shape and replays them on every call (`solver/graphs.py`);
+`make_sqp_solver(..., graphs=False)` is the eager twin. The staged solver
+stays eager: its phases are timed one by one.
 """
 
 from __future__ import annotations
@@ -163,36 +167,91 @@ def _candidates(traj, alphas, dxs, dus) -> Trajectory:
     return Trajectory(xs=traj.xs + a * dxs, us=traj.us + a * dus)
 
 
+def _take(alphas, idx):
+    """alphas[idx] for an index tensor of any shape, by `gather`: indexing
+    with a CUDA index tensor reads the device, which a CUDA graph refuses."""
+    return alphas.gather(0, idx.reshape(-1)).reshape(idx.shape)
+
+
 def _first_true(alphas, ok):
     """Per instance, the first (largest) alpha whose candidate is accepted,
     or 0 when none is: ok [C, *batch] -> [*batch]."""
-    return alphas[torch.argmax(ok.to(alphas.dtype), dim=0)] * ok.any(dim=0).to(alphas.dtype)
+    return _take(alphas, torch.argmax(ok.to(alphas.dtype), dim=0)) * ok.any(dim=0).to(alphas.dtype)
 
 
-def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
-                    device="cuda") -> Callable:
-    """Returns solve(t0, x0, init_traj, params, lam) -> SqpSolution.
+class IterationHead(NamedTuple):
+    """What the first part of an iteration leaves for the rest: the LQ's
+    stats, the step (dxs, dus) and, on the filter path, the top-2 candidates'
+    acceptance; on the merit path, the accepted alpha."""
+    cost: torch.Tensor
+    defect_norm: torch.Tensor
+    c0: torch.Tensor
+    v0: torch.Tensor
+    dxs: torch.Tensor
+    dus: torch.Tensor
+    ok_hi: torch.Tensor | None = None     # [2, *batch] (filter)
+    need_lo: torch.Tensor | None = None   # [*batch]: accepted neither top step (filter)
+    need_any: torch.Tensor | None = None  # 0-d: some instance needs the lower ladder (filter)
+    alpha: torch.Tensor | None = None     # [*batch] (merit)
 
-    Every tensor passed to `solve` lies on `device` (the CUDA card unless the
-    caller asks for the CPU)."""
-    _check_config(cfg)
-    dev = resolve_device(device)
-    fns = _lq_functions(ocp, flow, bp, cfg)
-    rho_lq = _rho_lq(cfg)
-    n_hi = 2
 
-    def merit(traj, times, params, lam):
-        c, _ = fns.total_cost(traj, times, params, lam, cfg.rho)
-        d = fns.defects(traj, times)
+class SqpIteration:
+    """One SQP iteration, split at its only host sync, the filter ladder's
+    branch (JAX takes it with `lax.cond` on the device):
+
+      head  the LQ approximation, its solve (projection + damping + K1, or
+            the AL path's LQ) and the top-2 candidate sweep (filter) or the
+            whole merit search (merit);
+      low   the rest of the ladder, for the instances that accepted neither
+            top step; run only when some instance needs it;
+      tail  the accepted step, the equality residuals and the AL update.
+
+    `make_sqp_solver` runs the three in order, eagerly or as CUDA graphs
+    (`solver/graphs.py`); either way, one iteration computes the same
+    operations on the same values."""
+
+    N_HI = 2   # the filter's first sweep: the two largest steps
+
+    def __init__(self, ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig):
+        _check_config(cfg)
+        self.cfg = cfg
+        self.fns = _lq_functions(ocp, flow, bp, cfg)
+        self.rho_lq = _rho_lq(cfg)
+        self.filter = cfg.line_search == "filter"
+        self.al = cfg.equality_handling == "al"
+        self._alphas: dict = {}
+
+    def alphas(self, like: torch.Tensor) -> torch.Tensor:
+        """The step ladder on like's device and dtype, made once."""
+        key = (like.device, like.dtype)
+        if key not in self._alphas:
+            self._alphas[key] = torch.tensor(self.cfg.alphas, dtype=like.dtype,
+                                              device=like.device)
+        return self._alphas[key]
+
+    def merit(self, traj, times, params, lam):
+        cfg = self.cfg
+        c, _ = self.fns.total_cost(traj, times, params, lam, cfg.rho)
+        d = self.fns.defects(traj, times)
         return c + cfg.defect_weight * torch.sum(torch.abs(d), dim=(-2, -1))
 
-    def sqp_iteration(traj, lam, g_prev, times, params, x0, alphas):
+    def initial_g(self, traj, times, params) -> torch.Tensor:
+        """max |g| of the initial trajectory: the AL update's first g_prev."""
+        return torch.amax(torch.abs(self.fns.eq_residuals(traj, times, params)), dim=(-2, -1))
+
+    def _try_alphas(self, head, traj, times, params, a):
+        cs, vs = self.fns.candidate_perf(_candidates(traj, a, head.dxs, head.dus), times, params)
+        return filter_accept(head.c0, head.v0, cs, vs, self.cfg.filter_g_max,
+                             self.cfg.filter_g_min)
+
+    def head(self, traj, lam, times, params, x0, alphas) -> IterationHead:
+        cfg, fns = self.cfg, self.fns
         # the ranges name the phases in a torch.profiler trace
         # (wb_humanoid_mpc_tpu_torch/tools/profile_sqp.py)
         with record_function("sqp.lq"):
-            lq = fns.lq_approximation(traj, times, params, lam, rho_lq)
+            lq = fns.lq_approximation(traj, times, params, lam, self.rho_lq)
         dx0 = x0 - traj.xs[..., 0, :]
-        if cfg.equality_handling == "projection":
+        if not self.al:
             with record_function("sqp.projection"):
                 reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
                 reduced = levenberg_damp(reduced, cfg.reg)
@@ -203,72 +262,104 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
             with record_function("sqp.riccati"):
                 # the unprojected LQ (nu = 35 on humanoid23) through K1
                 dxs, dus = _solve_lq(levenberg_damp(lq, cfg.reg), dx0, cfg)
-
+        head = IterationHead(cost=lq.cost, defect_norm=lq.defect_norm, c0=lq.cost_pure,
+                             v0=lq.viol, dxs=dxs, dus=dus)
         with record_function("sqp.linesearch"):
-            if cfg.line_search == "filter":
+            if self.filter:
                 # ocs2 FilterLinesearch: the largest accepted step wins. The
                 # baseline (c0, v0) comes with the LQ pass; the top-2 steps
                 # are tried first. Every instance of a batch has its own.
-                c0, v0 = lq.cost_pure, lq.viol
-
-                def try_alphas(a):
-                    cs, vs = fns.candidate_perf(_candidates(traj, a, dxs, dus), times, params)
-                    return filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
-
-                ok_hi = try_alphas(alphas[:n_hi])
-                # JAX takes this branch with lax.cond on the device (a select
-                # under vmap); here it is one host sync per iteration: the
-                # rest of the ladder runs when some instance accepted neither
-                # top step, and counts only for those instances
+                ok_hi = self._try_alphas(head, traj, times, params, alphas[:self.N_HI])
                 need_lo = ~ok_hi.any(dim=0)
-                if bool(need_lo.any()):
-                    ok_lo = try_alphas(alphas[n_hi:]) & need_lo
-                else:
-                    ok_lo = torch.zeros(alphas.shape[0] - n_hi, *need_lo.shape,
-                                        dtype=torch.bool, device=alphas.device)
-                alpha = _first_true(alphas, torch.cat([ok_hi, ok_lo]))
-            else:
-                # AL merit: all steps at once (one K2 launch per flow stage
-                # over steps x instances x nodes); the largest step that
-                # decreases it
-                merit0 = merit(traj, times, params, lam)
-                merits = merit(_candidates(traj, alphas, dxs, dus), times, params, lam)
-                # a candidate that produced NaN/inf must never be selected
-                merits = torch.where(torch.isfinite(merits), merits,
-                                     torch.full_like(merits, float("inf")))
-                ok = merits < merit0
-                best = torch.argmin(merits, dim=0)
-                pick = torch.where(ok.any(dim=0), torch.argmax(ok.to(merits.dtype), dim=0), best)
-                picked = torch.gather(merits, 0, pick[None])[0]
-                alpha = alphas[pick] * (picked < merit0).to(merits.dtype)
-            new_traj = _step(traj, alpha, dxs, dus)
+                return head._replace(ok_hi=ok_hi, need_lo=need_lo, need_any=need_lo.any())
+            # AL merit: all steps at once (one K2 launch per flow stage over
+            # steps x instances x nodes); the largest step that decreases it
+            merit0 = self.merit(traj, times, params, lam)
+            merits = self.merit(_candidates(traj, alphas, dxs, dus), times, params, lam)
+            # a candidate that produced NaN/inf must never be selected
+            merits = torch.where(torch.isfinite(merits), merits,
+                                 torch.full_like(merits, float("inf")))
+            ok = merits < merit0
+            best = torch.argmin(merits, dim=0)
+            pick = torch.where(ok.any(dim=0), torch.argmax(ok.to(merits.dtype), dim=0), best)
+            picked = torch.gather(merits, 0, pick[None])[0]
+            return head._replace(alpha=_take(alphas, pick) * (picked < merit0).to(merits.dtype))
 
+    def low(self, head: IterationHead, traj, times, params, alphas) -> torch.Tensor:
+        """The rest of the filter ladder, [C - 2, *batch]: it counts only for
+        the instances that accepted neither top step."""
+        with record_function("sqp.linesearch"):
+            return self._try_alphas(head, traj, times, params, alphas[self.N_HI:]) & head.need_lo
+
+    def no_low(self, head: IterationHead, alphas) -> torch.Tensor:
+        """`low`'s answer when no instance needs the rest of the ladder."""
+        return torch.zeros(alphas.shape[0] - self.N_HI, *head.need_lo.shape, dtype=torch.bool,
+                           device=alphas.device)
+
+    def tail(self, head: IterationHead, ok_lo, traj, lam, g_prev, times, params, alphas):
+        """(new traj, lam, max |g|, (cost, max |g|, defect norm, alpha))."""
+        cfg = self.cfg
+        with record_function("sqp.linesearch"):
+            alpha = (_first_true(alphas, torch.cat([head.ok_hi, ok_lo])) if self.filter
+                     else head.alpha)
+            new_traj = _step(traj, alpha, head.dxs, head.dus)
         with record_function("sqp.eq_residuals"):
-            g = fns.eq_residuals(new_traj, times, params)
+            g = self.fns.eq_residuals(new_traj, times, params)
             g_max = torch.amax(torch.abs(g), dim=(-2, -1))
-            if cfg.equality_handling == "al":
+            if self.al:
                 # safeguarded update: polish when nearly feasible; at large
                 # violation only reward genuine progress; clamped
                 do_update = (g_max < cfg.al_update_threshold) | (g_max < cfg.al_decrease * g_prev)
                 lam = torch.where(do_update[..., None, None], lam + cfg.rho * g, lam)
                 lam = torch.clamp(lam, -cfg.lam_max, cfg.lam_max)
-        return new_traj, lam, g_max, (lq.cost, g_max, lq.defect_norm, alpha)
+        return new_traj, lam, g_max, (head.cost, g_max, head.defect_norm, alpha)
+
+    def solution(self, traj, lam, stats) -> SqpSolution:
+        cost, g_norm, defect_norm, alpha = stats
+        return SqpSolution(traj=traj, lam=lam, cost=cost, g_norm=g_norm,
+                           defect_norm=defect_norm, step_size=alpha,
+                           iterations=self.cfg.sqp_iterations)
+
+
+def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *, device="cuda",
+                    graphs: bool | None = None) -> Callable:
+    """Returns solve(t0, x0, init_traj, params, lam) -> SqpSolution.
+
+    Every tensor passed to `solve` lies on `device` (the CUDA card unless the
+    caller asks for the CPU). `graphs` picks how an iteration runs: None (the
+    default) as CUDA graphs on a CUDA device and eagerly on the CPU, which has
+    none; True as CUDA graphs (`solver/graphs.py`: captured once per problem
+    shape, replayed every call; raises on the CPU); False eagerly, the twin
+    that the tests and the profiler use. The graphed solve copies its inputs
+    into static buffers and returns copies of its results, so a solution the
+    caller holds keeps its values after the next call."""
+    dev = resolve_device(device)
+    it = SqpIteration(ocp, flow, bp, cfg)
+    if graphs is None:
+        graphs = dev.type == "cuda"
+    if graphs:
+        from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+
+        return GraphedSqpSolve(it, dev)
 
     def solve(t0, x0, init_traj: Trajectory, params, lam) -> SqpSolution:
         if x0.device != dev or init_traj.xs.device != dev:
             raise ValueError(f"solver built for {dev}, got tensors on {x0.device}")
         times = _times(t0, x0, cfg)
-        alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
+        alphas = it.alphas(x0)
         traj, stats = init_traj, None
-        g_prev = (torch.amax(torch.abs(fns.eq_residuals(init_traj, times, params)), dim=(-2, -1))
-                  if cfg.equality_handling == "al" else None)
+        g_prev = it.initial_g(traj, times, params) if it.al else None
         for _ in range(cfg.sqp_iterations):
-            traj, lam, g_prev, stats = sqp_iteration(traj, lam, g_prev, times, params, x0,
-                                                     alphas)
-        cost, g_norm, defect_norm, alpha = stats
-        return SqpSolution(traj=traj, lam=lam, cost=cost, g_norm=g_norm,
-                           defect_norm=defect_norm, step_size=alpha,
-                           iterations=cfg.sqp_iterations)
+            head = it.head(traj, lam, times, params, x0, alphas)
+            ok_lo = None
+            if it.filter:
+                # one host sync per iteration: the rest of the ladder runs
+                # when some instance accepted neither top step
+                ok_lo = (it.low(head, traj, times, params, alphas) if bool(head.need_any)
+                         else it.no_low(head, alphas))
+            traj, lam, g_prev, stats = it.tail(head, ok_lo, traj, lam, g_prev, times, params,
+                                               alphas)
+        return it.solution(traj, lam, stats)
 
     return solve
 
@@ -288,6 +379,7 @@ def make_staged_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *
     dev = resolve_device(device)
     fns = _lq_functions(ocp, flow, bp, cfg)
     rho_lq = _rho_lq(cfg)
+    ladders: dict = {}   # the step ladder, made once per dtype
 
     def sync():
         if dev.type == "cuda":
@@ -319,7 +411,9 @@ def make_staged_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *
         if x0.device != dev or init_traj.xs.device != dev:
             raise ValueError(f"solver built for {dev}, got tensors on {x0.device}")
         times = _times(t0, x0, cfg)
-        alphas = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
+        if x0.dtype not in ladders:
+            ladders[x0.dtype] = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
+        alphas = ladders[x0.dtype]
         traj = init_traj
         spent = dict(lq=0.0, projection=0.0, riccati=0.0, linesearch=0.0)
         alpha = g_max = torch.zeros((), dtype=x0.dtype, device=dev)

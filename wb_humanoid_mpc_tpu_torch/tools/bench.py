@@ -8,8 +8,11 @@ same stance problem, built by the port's `interface.build_wb_problem` on
 `assets/humanoid23` (the G1's widths: nx 58, nu 35, 14 equality rows):
 N = 28 nodes of the task's 0.035 s, one SQP iteration a solve, each solve
 warm-started from the previous one's trajectory and multipliers. On the card
-each iteration launches K1 (`csrc/riccati.cu`) once and K2 (`csrc/fkvel.cu`)
-about seven times, through the solver's normal backends.
+the solve runs as `make_sqp_solver` gives it by default, as CUDA graphs
+(`solver/graphs.py`, the counterpart of `bench.py`'s `jax.jit`): the
+warm-up solve captures them, every later solve replays them. Each
+iteration launches K1 (`csrc/riccati.cu`) once and K2 (`csrc/fkvel.cu`) six
+to nine times, through the solver's normal backends.
 
 Timing as `bench.py`: one synced warm-up solve; `--timed` solves back to
 back with one synchronization at the end (sustained iterations/s, the

@@ -3,7 +3,8 @@
     python -m wb_humanoid_mpc_tpu_torch.tools.profile_sqp [--robot humanoid23]
         [--nodes 28] [--iters 3] [--out chiprun_out/profile_sqp.json]
 
-Runs the `chip_smoke.py` main path (stance, f32) under `torch.profiler` and
+Runs the `chip_smoke.py` main path (stance, f32), eagerly
+(`make_sqp_solver(..., graphs=False)`), under `torch.profiler` and
 reports, per SQP iteration: host wall time (of the same window run once
 without and once with the profiler), kernel launches and device time in all
 and per solver phase (the `sqp.*` ranges of `solver/sqp.py`), the device's
@@ -52,8 +53,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     pb = build_wb_problem(ASSETS / args.robot, args.nodes, device="cuda", dtype=torch.float32)
+    # the eager twin: the profiler sees each launch under its `sqp.*` range
     solve = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp,
-                            SqpSolverConfig(n_nodes=args.nodes, dt=pb.cfg.sqp.dt), device="cuda")
+                            SqpSolverConfig(n_nodes=args.nodes, dt=pb.cfg.sqp.dt), device="cuda",
+                            graphs=False)
     traj = pb.traj
     for _ in range(3):
         traj = solve(0.0, pb.x0, traj, pb.params, pb.lam).traj
