@@ -21,11 +21,19 @@ rows), the stance setup of `bench.py`, in float32:
   `forward_pass` and K1's fused solve;
 - every other solver configuration (AL + merit, parallel Riccati, midpoint
   and exact sensitivities, DDP, the staged solver), a few warm-started
-  solves each, against the same configuration on the plain versions;
-- the closed loop of both formulations (`build_*_mpc` + the dummy sim);
+  solves each, against the same configuration on the plain versions; the
+  staged solver's phase graphs against its eager twin (the same solution
+  and launches, each phase's device ms, phase seconds in turns);
+- the closed loop of both formulations (`build_*_mpc` + the dummy sim,
+  whose plant steps as a CUDA graph: against its eager twin, ms a step in
+  turns);
 - the MRT host runtime of both formulations: `MrtPipeline`'s solver thread
   on the card beside a 500 Hz control loop (replay plant, native seqlock,
-  the MRT controller on its own CUDA stream, native `control_tick`);
+  the MRT controller's feed-forward as a CUDA graph on its own stream,
+  native `control_tick`); the controller alone, graphed against eager in
+  turns, its graph's device ms, its device and host time per tick alone
+  and beside the solver thread, and a new controller's first tick (its
+  capture) beside a solver thread that is capturing its solve;
 - the batched solve: B = 8 against 8 unbatched solves and against its plain
   run, a sweep of B up to the largest that fits (at most 256), K1 at a
   leading batch of 8, 64 and that B, and K2 at the sweep's row counts
@@ -36,7 +44,8 @@ rows), the stance setup of `bench.py`, in float32:
   (`parallel/multihost.py::run_ranks`), against `make_batched_solver`, and
   K2 at the sharded path's row counts;
 - the launch CLI in-process, as a user runs it: `dummy-sim --formulation wb`
-  (1.0 s at 50 / 25 Hz, `--log-csv`) and `bench-batched --batch 8`;
+  (1.0 s at 50 / 25 Hz, `--log-csv`; its plant step graphed against eager)
+  and `bench-batched --batch 8`;
 - the port's bench entry in-process, as a user runs it
   (`tools.bench.main(["--timed", "20", "--latency-samples", "5"])`: its
   JSON line, K1 once per solve), then `scaling_report((1, 8))`;
@@ -46,9 +55,12 @@ rows), the stance setup of `bench.py`, in float32:
   (centroidal), and the three-thread `run_threaded_robot_sim`; without
   mujoco it prints a line that says so and runs none of it.
 
-Every path but the staged, DDP and sharded solvers runs its SQP solves as
-CUDA graphs, as a user gets them on the card; a replay adds the launches
-its graph holds to the kernels' counts. Each path checks that its kernels
+Every path but the DDP and sharded solvers runs its SQP solves as CUDA
+graphs, as a user gets them on the card (the staged solver one graph a
+phase), and so do the MRT controllers and the dummy plant; a replay adds
+the launches its graph holds to the kernels' counts. Each graph is held
+against its eager twin at GRAPH_TOL x max(1, max|ref|) (the same kernels
+on the same values: expected 0). Each path checks that its kernels
 were launched as the configuration implies, that the result is finite and
 that it agrees with the plain versions. The checks of a path's last kernel
 launch against the plain version read it through `LaunchRecorder`: under
@@ -86,6 +98,7 @@ K2_TOL = dict(rtol=1e-4, atol=5e-6)   # the Mosaic tolerance of tests/test_ops_f
 K1_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_ops_riccati.py Mosaic tier
 K3_TOL = {"f32": 1e-5, "f64": 1e-12}  # x max(1, max|ref|): tests/test_ops_rollout.py
 SOLVE_TOL = 2e-3                      # x max(1, max|ref|): kernels vs plain, whole solves
+GRAPH_TOL = 1e-6                      # x max(1, max|ref|): a graph vs its eager twin (expected 0)
 
 
 def clocks() -> str:
@@ -266,9 +279,12 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
     """`build_wb_mpc` / `build_centroidal_mpc` + `run_dummy_sim` on
     humanoid23 at N = 28, f32, the builders' iteration count (2): a 1.0 s
     stance run at 50 Hz plant / 25 Hz MPC (25 solves) per formulation and,
-    whole-body, a 1.2 s run with `request_gait("trot")` at t = 0.3 s. The
-    first 3 ticks of each stance run are held against the same loop on the
-    plain versions; the behaviour checks mirror tests/test_dummy_sim.py."""
+    whole-body, a 1.2 s run with `request_gait("trot")` at t = 0.3 s; the
+    plant steps as CUDA graphs, as `run_dummy_sim` takes them on the card.
+    The first 3 ticks of each stance run are held against the same loop on
+    the plain versions; the behaviour checks mirror tests/test_dummy_sim.py;
+    the stance run's plant step, graphed against eager, by
+    `plant_step_report`."""
     from wb_humanoid_mpc_tpu_torch.core.config import load_reference_config, load_task_config
     from wb_humanoid_mpc_tpu_torch.interface import (
         ASSETS,
@@ -293,8 +309,8 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
         z_ref = load_reference_config(files[2], n_j).default_base_height
         print(f"closed loop {form}: humanoid23 nx {nx} nu {nu} n_eq {mpc.ocp.n_eq} N "
               f"{mpc.n_nodes} dt {mpc.dt:.6g} horizon {mpc.n_nodes * mpc.dt:.6g} s, f32, "
-              f"50 Hz plant / 25 Hz MPC, graphed solves (the recovery solve captured at its "
-              f"first use)")
+              f"50 Hz plant / 25 Hz MPC, graphed solves (the recovery solve replays the "
+              f"solve's graphs) and plant steps")
 
         # one solve first: the timings below are of a warm process
         mpc.runtime.advance(0.0, mpc.initial_state, np.zeros(4))
@@ -383,6 +399,9 @@ def closed_loops(torch, riccati, fkvel, rollout, card: str) -> dict:
                   f"time; n_warm_resets {row['n_warm_resets']}; launches {launches}; base height "
                   f"{z.min():.4f}..{z.max():.4f} (reference {z_ref}); max g_norm "
                   f"{row['g_norm_max']:.3e} | {card}")
+            if run == "stance":
+                row["plant_step"] = plant_step_report(torch, mpc.model.flow_map, log, card,
+                                                      f"closed loop {form} stance")
 
         # the first 3 ticks against the plain versions
         plain.runtime.reset()
@@ -497,6 +516,64 @@ class LaunchRecorder:
         return {k: counted[slot] for k, slot in self.keys.items()}
 
 
+TICK_PAIRS, TICK_CALLS = 5, 50   # the controller alone, graphed against eager
+
+
+def first_tick_beside_capture(torch, rt, ctrl_cls, model, x0, alone_ms: float, what: str,
+                              card: str) -> dict:
+    """A new controller's first tick, its warm-up and capture, while a
+    `MrtPipeline`'s solver thread captures its solve: the runtime's solve
+    graphs dropped, the pipeline started from (0, x0), and the tick computed
+    (the fallback, no policy) as soon as the solver thread's warm-up
+    iteration has ended, i.e. when its capture begins. The controller's
+    warm-up runs beside that capture; its own capture waits for it (one
+    capture at a time in a process). Printed beside `alone_ms`, the first
+    tick of a controller with no solver thread."""
+    from wb_humanoid_mpc_tpu_torch.mpc.async_runtime import MrtPipeline
+
+    rt.reset()
+    rt.solve_fn.release()
+    fresh = ctrl_cls(model, device="cuda")
+    pipe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
+    pipe.push_observation(0.0, x0, np.zeros(4))
+    pipe.start()
+    try:
+        t_wait = time.perf_counter()
+        while True:
+            sets = list(rt.solve_fn.sets.values())
+            if pipe.failed or (sets and sets[0].warmup_s is not None):
+                break
+            if time.perf_counter() - t_wait > 120.0:
+                raise AssertionError(f"{what}: the solver thread did not warm up in 120 s")
+            time.sleep(0.0002)
+        capturing = bool(sets) and sets[0].capture_s is None
+        c0 = time.perf_counter()
+        tau = fresh.compute(0.0, x0, None).ff_effort
+        tick_ms = (time.perf_counter() - c0) * 1e3
+        while pipe.solve_count < 1 and not pipe.failed:
+            if time.perf_counter() - t_wait > 120.0:
+                raise AssertionError(f"{what}: no solve in 120 s")
+            time.sleep(0.01)
+    finally:
+        pipe.stop(timeout=120.0)
+    if pipe.failed:
+        raise AssertionError(f"{what}: the solver failed ({pipe.error!r})")
+    if not np.isfinite(tau).all():
+        raise AssertionError(f"{what}: non-finite torque at the first tick")
+    (entry, _), (solver_set,) = function_graph(fresh.graph), rt.solve_fn.sets.values()
+    out = dict(first_tick_ms=tick_ms, first_tick_alone_ms=alone_ms,
+               solver_capturing_at_tick=capturing, controller_warmup_s=entry.warmup_s,
+               controller_capture_s=entry.capture_s, solver_warmup_s=solver_set.warmup_s,
+               solver_capture_s=solver_set.capture_s)
+    print(f"{what}: a new controller's first tick (warm-up and capture) beside the solver "
+          f"thread's capture {tick_ms:.3f} ms (its warm-up {entry.warmup_s * 1e3:.3f} ms, "
+          f"capture {entry.capture_s * 1e3:.3f} ms; the solver's capture "
+          f"{'under way' if capturing else 'already ended'} at the tick: warm-up "
+          f"{solver_set.warmup_s:.3f} s, capture {solver_set.capture_s:.3f} s); with no "
+          f"solver thread {alone_ms:.3f} ms | {card}")
+    return out
+
+
 def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
     """The MRT host runtime at full width: per formulation, a `MrtPipeline`
     whose solver thread solves on the card while a 500 Hz control loop in
@@ -505,10 +582,22 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
     seqlock and computes torques with the formulation's controller (on its
     own CUDA stream) and with the native `control_tick`. The control clock
     is the wall clock. Whole-body for at least 5 s and 5 policies used by the
-    control loop, centroidal for at least 2 s and 3. Before the loop, one
-    solve of the solver thread from a fixed observation holds its K1 against
-    the plain version; after it, the thread's last K1 and K2 launches are
-    launched again (bit-identical) and held against plain."""
+    control loop, centroidal for at least 2 s and 3. The controller is the
+    card's default: its feed-forward a CUDA graph, captured by its first
+    compute, on its own stream. Before the loop: the
+    controller alone against its eager twin, TICK_PAIRS pairs of TICK_CALLS
+    calls in turns, p50 and p99 each; its graph's device ms, capture
+    seconds and memory; the device ms of its ticks alone (`DeviceTimer`);
+    graphed against eager torques on the same observations and policies at
+    GRAPH_TOL; one solve of the solver thread from a fixed observation
+    holds its K1 against the plain version. The loop reads its controller's
+    device ms per tick beside the solver thread. After it, the thread's last
+    K1 and K2 launches are launched again (bit-identical) and held against
+    plain. Last, a new controller's first tick (its warm-up and capture)
+    beside a solver thread that is capturing: the runtime's graphs dropped,
+    a new pipeline started, and the tick timed once the solver thread's
+    warm-up iteration has ended, against the first tick of the loop's
+    controller with no solver thread."""
     from wb_humanoid_mpc_tpu_torch import native
     from wb_humanoid_mpc_tpu_torch.core.config import load_task_config
     from wb_humanoid_mpc_tpu_torch.interface import (
@@ -548,19 +637,55 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
         # (the graphed solves are captured by the warm solve below)
         recorders = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda"),
                      LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda")]
-        # warm: the first solve (its graphs' capture) and controller call of
-        # a process are slow; then the controller alone, with no solver
-        # thread beside it
+        # warm: the first solve (its graphs' capture) and controller call
+        # (its graph's capture) of a process are slow; then the controller
+        # alone, with no solver thread beside it
         rt.advance(0.0, x0, np.zeros(4))
         warm_pol = rt.policy
         rt.reset()
-        ctrl.compute(0.0, x0, None)
-        alone_ms = []
-        for i in range(50):
+        ctrls = {"own": ctrl, "eager": ctrl_cls(mpc.model, device="cuda", graphs=False)}
+        first_tick_ms = {}
+        for k, c in ctrls.items():
             c0 = time.perf_counter()
-            ctrl.compute(0.002 * i, x0, warm_pol)
-            alone_ms.append((time.perf_counter() - c0) * 1e3)
+            c.compute(0.0, x0, None)
+            first_tick_ms[k] = (time.perf_counter() - c0) * 1e3
+        if ctrls["eager"].graph is not None or ctrl.graph is None:
+            raise AssertionError(f"mrt {form}: the controller on the card is not graphed by "
+                                 f"default, or graphs=False is")
+        entry, ctrl_graph = function_graph(ctrl.graph)
+        capture = dict(warmup_s=entry.warmup_s, capture_s=entry.capture_s,
+                       pool_bytes=entry.pool_bytes)
+        # graphed against eager on the same observations and policies
+        rng = np.random.default_rng(11)
+        tau_vs_eager = 0.0
+        for t in (0.0, 0.013, 0.05, 0.2):
+            x_obs = warm_pol.evaluate(t)[0] + 0.01 * rng.standard_normal(x0.shape)
+            for pol in (None, warm_pol):
+                got, ref = (torch.from_numpy(ctrls[k].compute(t, x_obs, pol).ff_effort)
+                            for k in ("own", "eager"))
+                tau_vs_eager = max(tau_vs_eager, scaled_err(
+                    [got], [ref], GRAPH_TOL, f"mrt {form}: graphed vs eager torques at t = {t}"))
+        alone = timed_pairs({k: (lambda c=ctrls[k]: c.compute(0.004, x0, warm_pol))
+                             for k in ("own", "eager")}, TICK_PAIRS, TICK_CALLS)
+        graph_ms = kernel_device_ms(ctrl_graph.replay, 20)
+        timer = DeviceTimer(torch, ctrl.graph)
+        try:
+            for _ in range(TICK_CALLS):
+                ctrl.compute(0.004, x0, warm_pol)
+            alone_device_ms = float(np.percentile(timer.take(), 50))
+        finally:
+            timer.restore()
         torch.cuda.synchronize()
+        print(f"mrt {form}: controller alone (no solver thread), graphed {alone['own']['p50']} "
+              f"ms p50, {alone['own']['p99']} ms p99; eager {alone['eager']['p50']} ms p50, "
+              f"{alone['eager']['p99']} ms p99 ({TICK_PAIRS} pairs of {TICK_CALLS} calls in "
+              f"turns); a graphed tick's device work (input copies and replay, CUDA events on "
+              f"its stream) p50 {alone_device_ms:.4f} ms; "
+              f"its graph {graph_ms:.4f} ms on the device, captured in "
+              f"{entry.capture_s:.3f} s (warm-up {entry.warmup_s:.3f} s), "
+              f"{entry.pool_bytes / 2**20:.1f} MiB; max|graphed - eager| torques "
+              f"{tau_vs_eager:.3e} (limit {GRAPH_TOL} x max(1, max|ref|)); its first tick "
+              f"(warm-up and capture) {first_tick_ms['own']:.3f} ms | {card}")
 
         # the solver thread's K1 on a reproducible input: the one solve of a
         # fresh pipeline from the fixed observation (t = 0, x0)
@@ -587,71 +712,96 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
             got, riccati.riccati_rollout_plain(*args, **kwargs),
             f"mrt {form} K1 (solver thread, fixed observation)")
 
+        def control_loop(pipe, c):
+            """The 500 Hz loop beside pipe's solver thread with controller c
+            (the pipeline started and stopped here)."""
+            loop = dict(starts=[], work=[], ctrl_ms=[], ages=[], past=[], tau_err=0.0,
+                        policies=set(), device_ms=[])
+            x = x0.copy()
+            timer = DeviceTimer(torch, c.graph)
+            pipe.start()
+            try:
+                t_start = time.perf_counter()
+                k = 0
+                while True:
+                    wait = t_start + k * period - time.perf_counter()
+                    if wait > 0:
+                        time.sleep(wait)
+                    s0 = time.perf_counter()
+                    loop["starts"].append(s0)
+                    t = s0 - t_start   # the control clock is the wall clock
+                    pipe.push_observation(t, x, np.zeros(4))
+                    pol = pipe.get_policy()
+                    c0 = time.perf_counter()
+                    action = c.compute(t, x, pol)
+                    loop["ctrl_ms"].append((time.perf_counter() - c0) * 1e3)
+                    loop["device_ms"] += timer.take()
+                    q = x[q_off:q_off + n]
+                    if pol is None:
+                        qd = np.zeros(n)
+                    else:
+                        qd = (x[qd_off:qd_off + n] if qd_src == 0
+                              else lay.joint_input(pol.evaluate(t)[1]))
+                    tau = action.total_torque(q, qd)
+                    if not np.isfinite(tau).all():
+                        raise AssertionError(f"mrt {form}: non-finite torque at tick {k}")
+                    if pol is not None:
+                        loop["policies"].add(pol.t0)
+                        tau_n = native.control_tick(
+                            pol.xs, pol.us, pol.t0, pol.dt, t + c.lead, q_off, qd_src, qd_off,
+                            np.arange(n), action.ff_effort, c.KP, c.KD, c.KP_FIXED, c.KD_FIXED,
+                            q, qd)
+                        loop["tau_err"] = max(loop["tau_err"], float(
+                            np.abs(tau_n - tau).max() / max(1.0, float(np.abs(tau).max()))))
+                        loop["ages"].append(t - pol.t0)
+                        loop["past"].append(t + c.lead - pol.t0 > horizon)
+                        x = np.asarray(pol.evaluate(t + period)[0], dtype=float)   # replay plant
+                    loop["work"].append(time.perf_counter() - s0)
+                    k += 1
+                    elapsed = time.perf_counter() - t_start
+                    if pipe.failed or (elapsed >= seconds and len(loop["policies"]) >= min_solves):
+                        break
+                    if elapsed > 120.0:
+                        raise AssertionError(f"mrt {form}: {len(loop['policies'])} policies in "
+                                             f"120 s")
+            finally:
+                pipe.stop(timeout=120.0)
+                timer.restore()
+            loop["wall"] = time.perf_counter() - t_start
+            if pipe._thread is not None:
+                raise AssertionError(f"mrt {form}: stop() did not join the solver thread")
+            if pipe.failed:
+                raise AssertionError(f"mrt {form}: the solver failed ({pipe.error!r})")
+            periods = np.diff(loop["starts"]) * 1e3
+            loop["summary"] = dict(
+                tick_period_ms_p50=float(np.percentile(periods, 50)),
+                tick_period_ms_p99=float(np.percentile(periods, 99)),
+                tick_period_ms_max=float(periods.max()),
+                overruns=int(sum(w > period for w in loop["work"])),
+                controller_ms_p50=float(np.percentile(loop["ctrl_ms"], 50)),
+                controller_ms_p99=float(np.percentile(loop["ctrl_ms"], 99)),
+                controller_device_ms_p50=float(np.percentile(loop["device_ms"], 50)),
+                controller_device_ms_p99=float(np.percentile(loop["device_ms"], 99)),
+                policy_age_ms_p50=float(np.percentile(loop["ages"], 50)) * 1e3,
+                policy_age_ms_max=float(max(loop["ages"])) * 1e3, ticks=len(loop["starts"]))
+            return loop
+
         record = _recording(rt, riccati, fkvel)
         pipe = MrtPipeline(rt, nx=x0.shape[0], device="cuda")
         observer = PolicyObserver(pipe)
-        starts, work, ctrl_ms, ages, past, tau_err = [], [], [], [], [], 0.0
-        policies_seen = set()
-        x = x0.copy()
         for mod in (riccati, fkvel):
             mod.reset_launches()
-        pipe.start()
         try:
-            t_start = time.perf_counter()
-            k = 0
-            while True:
-                wait = t_start + k * period - time.perf_counter()
-                if wait > 0:
-                    time.sleep(wait)
-                s0 = time.perf_counter()
-                starts.append(s0)
-                t = s0 - t_start   # the control clock is the wall clock
-                pipe.push_observation(t, x, np.zeros(4))
-                pol = pipe.get_policy()
-                c0 = time.perf_counter()
-                action = ctrl.compute(t, x, pol)
-                ctrl_ms.append((time.perf_counter() - c0) * 1e3)
-                q = x[q_off:q_off + n]
-                if pol is None:
-                    qd = np.zeros(n)
-                else:
-                    qd = (x[qd_off:qd_off + n] if qd_src == 0
-                          else lay.joint_input(pol.evaluate(t)[1]))
-                tau = action.total_torque(q, qd)
-                if not np.isfinite(tau).all():
-                    raise AssertionError(f"mrt {form}: non-finite torque at tick {k}")
-                if pol is not None:
-                    policies_seen.add(pol.t0)
-                    tau_n = native.control_tick(
-                        pol.xs, pol.us, pol.t0, pol.dt, t + ctrl.lead, q_off, qd_src, qd_off,
-                        np.arange(n), action.ff_effort, ctrl.KP, ctrl.KD, ctrl.KP_FIXED,
-                        ctrl.KD_FIXED, q, qd)
-                    tau_err = max(tau_err, float(np.abs(tau_n - tau).max()
-                                                 / max(1.0, float(np.abs(tau).max()))))
-                    ages.append(t - pol.t0)
-                    past.append(t + ctrl.lead - pol.t0 > horizon)
-                    x = np.asarray(pol.evaluate(t + period)[0], dtype=float)   # replay plant
-                work.append(time.perf_counter() - s0)
-                k += 1
-                elapsed = time.perf_counter() - t_start
-                if pipe.failed or (elapsed >= seconds and len(policies_seen) >= min_solves):
-                    break
-                if elapsed > 120.0:
-                    raise AssertionError(f"mrt {form}: {len(policies_seen)} policies in 120 s")
+            loop = control_loop(pipe, ctrl)
         finally:
-            pipe.stop(timeout=120.0)
             for r in recorders:
                 r.restore()
             del rt.advance   # the recording wrapper
         torch.cuda.synchronize()
         launches = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
-        wall = time.perf_counter() - t_start
-        if pipe._thread is not None:
-            raise AssertionError(f"mrt {form}: stop() did not join the solver thread")
-        if pipe.failed:
-            raise AssertionError(f"mrt {form}: the solver failed ({pipe.error!r})")
-        if len(policies_seen) < 3:
-            raise AssertionError(f"mrt {form}: {len(policies_seen)} policies seen by the "
+        wall, tau_err, ages, past = loop["wall"], loop["tau_err"], loop["ages"], loop["past"]
+        if len(loop["policies"]) < 3:
+            raise AssertionError(f"mrt {form}: {len(loop['policies'])} policies seen by the "
                                  f"control loop")
         if "lib" not in native._state or pipe._pol_buf._lib is not native._state["lib"]:
             raise AssertionError(f"mrt {form}: the seqlock buffers are not the native library's")
@@ -700,20 +850,15 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
             e2 = max_err(got, ref2, what=f"mrt {form} K2", **K2_TOL)
             r2 = max(float(((a - b).abs() / (K2_TOL["atol"] + K2_TOL["rtol"] * b.abs())).max())
                      for a, b in zip(got, ref2))
-        periods = np.diff(starts) * 1e3
         solve_ms = np.array([r["stats"].solve_time for r in record]) * 1e3
-        row = dict(solves=pipe.solve_count, policies_seen=len(policies_seen), ticks=len(starts),
-                   wall_s=wall,
-                   tick_period_ms_p50=float(np.percentile(periods, 50)),
-                   tick_period_ms_p99=float(np.percentile(periods, 99)),
-                   tick_period_ms_max=float(periods.max()),
-                   overruns=int(sum(w > period for w in work)),
-                   controller_ms_p50=float(np.percentile(ctrl_ms, 50)),
-                   controller_ms_p99=float(np.percentile(ctrl_ms, 99)),
-                   controller_alone_ms_p50=float(np.percentile(alone_ms, 50)),
+        row = dict(solves=pipe.solve_count, policies_seen=len(loop["policies"]), wall_s=wall,
+                   **loop["summary"],
+                   controller_alone_ms_p50=alone["own"]["median_p50"],
+                   controller_alone_device_ms_p50=alone_device_ms,
+                   controller_alone=alone, controller_graph_device_ms=graph_ms,
+                   controller_capture=capture, controller_vs_eager=tau_vs_eager,
+                   controller_first_tick_alone_ms=first_tick_ms["own"],
                    gil_switch_interval_s=sys.getswitchinterval(),
-                   policy_age_ms_p50=float(np.percentile(ages, 50)) * 1e3,
-                   policy_age_ms_max=float(max(ages)) * 1e3,
                    past_horizon_share=float(np.mean(past)), horizon_s=horizon,
                    solve_ms_p50=float(np.percentile(solve_ms, 50)),
                    sqp_iterations=n_it, k1_per_iteration=k1 / n_it,
@@ -732,8 +877,10 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
               f"{row['tick_period_ms_p50']:.3f} ms p99 {row['tick_period_ms_p99']:.3f} ms max "
               f"{row['tick_period_ms_max']:.3f} ms; {row['overruns']} ticks over 2 ms; "
               f"controller p50 {row['controller_ms_p50']:.3f} ms p99 "
-              f"{row['controller_ms_p99']:.3f} ms (alone, no solver thread: p50 "
-              f"{row['controller_alone_ms_p50']:.3f} ms; GIL switch interval "
+              f"{row['controller_ms_p99']:.3f} ms, its device work a tick p50 "
+              f"{row['controller_device_ms_p50']:.3f} ms (alone, no solver thread: p50 "
+              f"{row['controller_alone_ms_p50']:.3f} ms, device "
+              f"{row['controller_alone_device_ms_p50']:.3f} ms; GIL switch interval "
               f"{sys.getswitchinterval() * 1e3:g} ms); policy age p50 {row['policy_age_ms_p50']:.1f} "
               f"ms max {row['policy_age_ms_max']:.1f} ms; ticks past the {horizon:.3f} s horizon "
               f"{100 * row['past_horizon_share']:.2f} %; per SQP iteration in the solver thread "
@@ -744,6 +891,8 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
               f"{'-' if e2 is None else f'{e2:.3e} ({r2:.3f} of its limit)'}; the last "
               f"launches again from the main thread bit-identical {same_bits}; "
               f"native control_tick vs controller {tau_err:.1e} | {card}")
+        row["first_tick_beside_capture"] = first_tick_beside_capture(
+            torch, rt, ctrl_cls, mpc.model, x0, first_tick_ms["own"], f"mrt {form}", card)
     return out
 
 
@@ -1119,6 +1268,183 @@ def graph_device_ms(gs, inputs) -> dict:
     return out
 
 
+def timed_pairs(calls: dict, n_pairs: int, n_calls: int) -> dict:
+    """Host ms of the calls of the two sides of `calls` ({side: fn}, each
+    call synchronous) in n_pairs pairs of n_calls calls, in turns (the first
+    side first in even pairs): {side: {"p50": [a pair's], "p99": [a pair's],
+    "median_p50": ...}}."""
+    sides = list(calls)
+    out = {side: dict(p50=[], p99=[]) for side in sides}
+    for i in range(n_pairs):
+        for side in (sides if i % 2 == 0 else sides[::-1]):
+            ms = []
+            for _ in range(n_calls):
+                t0 = time.perf_counter()
+                calls[side]()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[side]["p50"].append(float(np.percentile(ms, 50)))
+            out[side]["p99"].append(float(np.percentile(ms, 99)))
+    for side in sides:
+        out[side]["median_p50"] = float(np.median(out[side]["p50"]))
+    return out
+
+
+def function_graph(graphed) -> tuple:
+    """(the one entry, its one CUDA graph) of a `GraphedFunction` called at
+    one shape."""
+    (entry,) = graphed.entries.values()
+    return entry, entry.graphs[entry.pieces[0].name]
+
+
+class DeviceTimer:
+    """Wraps `run` of a `GraphedFunction` to record CUDA events on the
+    current stream around the device work each run enqueues (its input
+    copies and its replay): `take()`, once the caller has waited for that
+    stream, gives the ms of each run since the last take."""
+
+    def __init__(self, torch, graphed):
+        self.graphed, self.pending = graphed, []
+        orig = graphed.run
+
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = orig(*args, **kwargs)
+            end.record()
+            self.pending.append((start, end))
+            return out
+
+        graphed.run = run
+
+    def take(self) -> list:
+        ms = [start.elapsed_time(end) for start, end in self.pending]
+        self.pending.clear()
+        return ms
+
+    def restore(self) -> None:
+        del self.graphed.run
+
+
+PLANT_PAIRS, PLANT_STEPS = 5, 20
+
+
+def plant_step_report(torch, flow, log, card: str, what: str) -> dict:
+    """The dummy plant's RK4 step (`sim/dummy.py::PlantStep`, f32, 50 Hz),
+    as the dummy sim takes it on the card (a CUDA graph) against its eager
+    twin (`graphs=False`): at the (t, x, u) of every tick of log, held at
+    GRAPH_TOL x max(1, max|ref|) (the same kernels on the same values:
+    expected 0); the graph's capture seconds, memory and device ms (replays
+    queued behind a sleep kernel); PLANT_PAIRS pairs of PLANT_STEPS steps
+    in turns at the log's last tick, ms a step each (host to host)."""
+    from wb_humanoid_mpc_tpu_torch.sim.dummy import PlantStep
+    from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    steps = {"graphed": PlantStep(flow, 1.0 / 50.0, dev, torch.float32),
+             "eager": PlantStep(flow, 1.0 / 50.0, dev, torch.float32, graphs=False)}
+    if steps["graphed"].graph is None or steps["eager"].graph is not None:
+        raise AssertionError(f"{what}: PlantStep on the card is not graphed by default, or "
+                             f"graphs=False is")
+    err = 0.0
+    for t, x, u in zip(log.times, log.states, log.inputs):
+        got, ref = (torch.from_numpy(step(t, x, u)) for step in steps.values())
+        err = max(err, scaled_err([got], [ref], GRAPH_TOL,
+                                  f"{what}: the graphed plant step against the eager one at "
+                                  f"t = {t}"))
+    entry, graph = function_graph(steps["graphed"].graph)
+    device_ms = kernel_device_ms(graph.replay, 20)
+    t, x, u = log.times[-1], log.states[-1], log.inputs[-1]
+    pairs = timed_pairs({side: (lambda step=step: step(t, x, u)) for side, step in steps.items()},
+                        PLANT_PAIRS, PLANT_STEPS)
+    out = dict(graphed_vs_eager_max_err=err, ticks_compared=len(log.times),
+               warmup_s=entry.warmup_s, capture_s=entry.capture_s, pool_bytes=entry.pool_bytes,
+               graph_device_ms=device_ms, pairs=pairs,
+               graphed_ms_per_step=pairs["graphed"]["median_p50"],
+               eager_ms_per_step=pairs["eager"]["median_p50"])
+    print(f"{what}: plant step graphed {out['graphed_ms_per_step']:.3f} ms, eager "
+          f"{out['eager_ms_per_step']:.3f} ms a step (medians of {PLANT_PAIRS} pairs' p50, "
+          f"{PLANT_STEPS} steps each, in turns; per pair graphed {pairs['graphed']['p50']}, "
+          f"eager {pairs['eager']['p50']}); the graph {device_ms:.4f} ms on the device, "
+          f"captured in {entry.capture_s:.3f} s (warm-up {entry.warmup_s:.3f} s), "
+          f"{entry.pool_bytes / 2**20:.1f} MiB; max|graphed - eager| {err:.3e} over "
+          f"{len(log.times)} ticks' (t, x, u) (limit {GRAPH_TOL} x max(1, max|ref|)) | {card}")
+    return out
+
+
+STAGED_PAIRS, STAGED_SOLVES = 5, 3
+
+
+def staged_graphs(torch, riccati, fkvel, pb, cfg, graphed, traj, lam, card: str) -> dict:
+    """The staged solver as a user gets it on the card (`graphed`: one CUDA
+    graph a phase, captured by its first call) against its eager twin
+    (`graphs=False`) on the main path's problem: the same warm start through
+    both, and through the first call of a new graphed staged solver (its
+    one iteration eager, then only captured), held at GRAPH_TOL x max(1,
+    max|ref|) on the trajectory, cost, g_norm and defect norm with the same
+    step (the same kernels on the same values: expected 0) and the same K1
+    and K2 launches;
+    each phase graph's device ms (its replays queued behind a sleep kernel,
+    from the loaded inputs); STAGED_PAIRS pairs of STAGED_SOLVES solves in
+    turns, the phase seconds of each solve, graphed and eager."""
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_staged_sqp_solver
+
+    eager = make_staged_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda",
+                                   graphs=False)
+    if not hasattr(graphed, "sets") or hasattr(eager, "sets"):
+        raise AssertionError("staged: make_staged_sqp_solver on the card did not return the "
+                             "graphed solve by default, or graphs=False did not return the "
+                             "eager one")
+    first = make_staged_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
+    inputs = (0.0, pb.x0, traj, pb.params, lam)
+    sols, counts = {}, {}
+    for side, solve in (("eager", eager), ("graphed", graphed), ("first call", first)):
+        riccati.reset_launches()
+        fkvel.reset_launches()
+        sols[side], phases = solve(*inputs)
+        torch.cuda.synchronize()
+        counts[side] = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES}
+        if min(phases) < 0:
+            raise AssertionError(f"staged {side}: negative phase time {phases}")
+    if not counts["graphed"] == counts["first call"] == counts["eager"]:
+        raise AssertionError(f"staged: launches {counts}")
+    ref = sols["eager"]
+    err = 0.0
+    for side in ("graphed", "first call"):
+        got = sols[side]
+        err = max(err, scaled_err(
+            [got.traj.xs, got.traj.us, got.cost, got.g_norm, got.defect_norm],
+            [ref.traj.xs, ref.traj.us, ref.cost, ref.g_norm, ref.defect_norm], GRAPH_TOL,
+            f"staged: {side} graphed vs eager"))
+        if float(got.step_size) != float(ref.step_size):
+            raise AssertionError(f"staged: {side} graphed step {float(got.step_size)}, eager "
+                                 f"{float(ref.step_size)}")
+    (gs,) = graphed.sets.values()
+    held = {name: {"K1": n.get(riccati.__name__, 0), "K2": n.get(fkvel.__name__, 0)}
+            for name, n in gs.held.items()}
+    device_ms = graph_device_ms(gs, inputs)
+    seconds = {"graphed": [], "eager": []}
+    for i in range(STAGED_PAIRS):
+        for side in (("eager", "graphed") if i % 2 == 0 else ("graphed", "eager")):
+            solve = graphed if side == "graphed" else eager
+            for _ in range(STAGED_SOLVES):
+                seconds[side].append(dict(solve(*inputs)[1]._asdict()))
+    median = {side: {f: float(np.median([r[f] for r in runs])) for f in runs[0]}
+              for side, runs in seconds.items()}
+    out = dict(graphed_vs_eager_max_err=err, launches_per_solve=counts["graphed"],
+               launches_held=held, phase_device_ms=device_ms, capture_s=gs.capture_s,
+               warmup_s=gs.warmup_s, pool_bytes=gs.pool_bytes, phase_s_median=median,
+               phase_s=seconds)
+    print(f"staged: phase seconds of a solve (medians of {STAGED_PAIRS} pairs of "
+          f"{STAGED_SOLVES} solves in turns) graphed {median['graphed']}, eager "
+          f"{median['eager']}; each phase graph on the device {device_ms} ms; launches per "
+          f"solve {counts['graphed']} graphed and eager, held by the graphs {held}; captured "
+          f"in {gs.capture_s:.3f} s (warm-up iteration {gs.warmup_s:.3f} s), "
+          f"{gs.pool_bytes / 2**20:.1f} MiB; max|graphed - eager| {err:.3e} (a replay and a "
+          f"new solver's first call; limit {GRAPH_TOL} x max(1, max|ref|)), the same step | "
+          f"{card}")
+    return out
+
+
 def graphs_phase(torch, riccati, fkvel, card: str) -> dict:
     """The compiled solve against its eager twin on the main path
     (humanoid23, N = 28, f32, one warm-started iteration a solve):
@@ -1303,9 +1629,11 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     launch counts set to 0 just before it: K1 once per SQP iteration, K2 6
     to 9 times; finite states, one CSV row per tick under the JAX logger's
     header. The dummy-sim's last K1 and K2 launches are held against the
-    plain versions on the same inputs."""
+    plain versions on the same inputs, and its plant step, graphed against
+    eager, by `plant_step_report` at the ticks it logged."""
     import tempfile
 
+    from wb_humanoid_mpc_tpu_torch.interface import ASSETS, load_wb_model
     from wb_humanoid_mpc_tpu_torch.tools import launch
     from wb_humanoid_mpc_tpu_torch.tools.observation_logger import ObservationLogger
 
@@ -1352,9 +1680,13 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     out["dummy-sim"] = dict(summary=summary, ticks=len(log.times), wall_s=wall,
                             ticks_per_s=len(log.times) / wall, sqp_iterations=n_it,
                             launches={"K1": k1, "K2": k2}, k1_last_vs_plain=e1,
-                            k2_last_vs_plain=e2, final_base_xy=res["final_base_xy"])
+                            k2_last_vs_plain=e2, final_base_xy=res["final_base_xy"],
+                            plant_step=plant_step_report(
+                                torch, load_wb_model(ASSETS / "humanoid23")[1].flow_map, log,
+                                card, "launch dummy-sim wb"))
     print(f"launch dummy-sim wb: BenchmarksPublisher summary {json.dumps(summary)}")
-    print(f"launch dummy-sim wb (graphed solves, holding the K1/K2 recorders' copies): "
+    print(f"launch dummy-sim wb (graphed solves, holding the K1/K2 recorders' copies, and "
+          f"graphed plant steps): "
           f"{len(log.times)} ticks (CSV rows) in "
           f"{wall:.2f} s, "
           f"{len(log.times) / wall:.3f} ticks/s of wall time; launches in {n_it} SQP "
@@ -1987,10 +2319,8 @@ def main() -> int:
                 raise AssertionError(f"{cname}: {kname} launched {seen[kname]} times in {n} "
                                      f"solves, expected {lo}..{hi}")
         if cname == "staged":
-            _, phases = solve_k(0.0, pb.x0, c_traj, pb.params, c_lam)
-            if min(phases) < 0:
-                raise AssertionError(f"staged: negative phase time {phases}")
-            print(f"staged: phase seconds of one solve {dict(phases._asdict())}")
+            staged_report = staged_graphs(torch, riccati, fkvel, pb, kcfg, solve_k, c_traj,
+                                          c_lam, card)
         ref = run(solve_p, pb.traj, pb.lam)
         torch.cuda.synchronize()
         errs = []
@@ -2010,7 +2340,7 @@ def main() -> int:
               f"{t_first:.2f} s; sustained {rate:.3f} it/s; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB | {card}")
     print(json.dumps({"config_it_per_s": config_rates, "main_path_it_per_s": sustained,
-                      "card": card}))
+                      "staged": staged_report, "card": card}))
 
     # ---- 9. the closed loop, both formulations, humanoid23 at N = 28 ----
     loops = closed_loops(torch, riccati, fkvel, rollout, card)

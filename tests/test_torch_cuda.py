@@ -19,7 +19,12 @@ gives the CPU's non-finite pattern on a singular combine matrix, without a
 raise. The compiled solve (`solver/graphs.py`): graphed against eager on
 the main path, t0 read at every replay, the recapture after a gain update,
 the launch counters under replay, a failed capture raising, and the MRT
-solver thread capturing beside the controller. Needs an
+solver thread capturing beside the controller. The compiled control tick:
+each MRT controller's graphed feed-forward, the dummy plant's graphed RK4
+step (on a flow that reads t) and the staged solver's phase graphs against
+their eager twins (and the staged launch counts against the eager ones),
+controllers capturing and replaying in one thread while another captures
+and replays a solve, and a failed controller capture raising. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -756,3 +761,235 @@ def test_graphed_mrt_pipeline_captures_beside_the_controller(card):
     assert pipe.solve_count >= 3 and ticks > pipe.solve_count
     assert threads and set(threads) == {"mpc-solver"}, threads
     assert len(mpc.runtime.solve_fn.sets) == 1
+
+
+# ---- the compiled control tick: controllers, plant step, staged phases ----
+
+GRAPH_TOL = 1e-6   # x max(1, max|ref|): a graph against its eager twin (expected 0)
+
+
+def _scaled(a, b) -> tuple[float, float]:
+    """(max |a - b|, its limit GRAPH_TOL x max(1, max|b|)) of numpy arrays
+    or tensors."""
+    a, b = (np.asarray(x.double().cpu() if isinstance(x, torch.Tensor) else x, np.float64)
+            for x in (a, b))
+    return float(np.abs(a - b).max()), GRAPH_TOL * max(1.0, float(np.abs(b).max()))
+
+
+def _h23_model(card, form):
+    from wb_humanoid_mpc_tpu_torch.interface import (
+        build_centroidal_mpc,
+        build_wb_mpc,
+        mpc_files,
+    )
+
+    build = build_wb_mpc if form == "wb" else build_centroidal_mpc
+    mpc = build(*mpc_files(ASSETS / "humanoid23", form), n_nodes=6, device=card)
+    return mpc.model, np.asarray(mpc.initial_state, dtype=np.float64)
+
+
+def _policy(model, x0, seed):
+    from wb_humanoid_mpc_tpu_torch.mpc.runtime import Policy
+
+    rng = np.random.default_rng(seed)
+    n = 5
+    return Policy(t0=0.0, dt=0.04, xs=x0 + 0.02 * rng.standard_normal((n, x0.size)),
+                  us=rng.standard_normal((n - 1, model.layout.input_dim)),
+                  contact_flags=np.ones((n, 2)))
+
+
+@pytest.mark.parametrize("form", ["wb", "centroidal"])
+def test_graphed_controller_matches_eager_on_the_card(card, form):
+    """The MRT controller as a user gets it on the card (its feed-forward
+    one CUDA graph, captured at the first compute, on its own stream)
+    against its eager twin (`graphs=False`) on the same
+    observations, the fallback and a policy: within GRAPH_TOL x max(1,
+    max|ref|) (the maximum is printed; expected 0)."""
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import (
+        CentroidalMrtController,
+        WBMrtController,
+    )
+
+    cls = WBMrtController if form == "wb" else CentroidalMrtController
+    model, x0 = _h23_model(card, form)
+    graphed, eager = cls(model, device=card), cls(model, device=card, graphs=False)
+    assert graphed.graph is not None and eager.graph is None
+    assert graphed.stream != torch.cuda.current_stream(card)
+    pol = _policy(model, x0, 1)
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for t in (0.0, 0.013, 0.05, 0.5):
+        x = pol.evaluate(t)[0] + 0.01 * rng.standard_normal(x0.shape)
+        for policy in (None, pol):
+            err, limit = _scaled(graphed.compute(t, x, policy).ff_effort,
+                                 eager.compute(t, x, policy).ff_effort)
+            assert err <= limit, f"{form} t={t}: {err:.3e} > {limit:.3e}"
+            worst = max(worst, err)
+    (entry,) = graphed.graph.entries.values()
+    assert list(entry.graphs) == [entry.pieces[0].name]
+    print(f"{form} controller graphed vs eager: max|d| {worst:.3e}")
+
+
+@pytest.mark.parametrize("form", ["wb", "centroidal"])
+def test_graphed_plant_step_matches_eager_on_the_card(card, form):
+    """The dummy plant's RK4 step graphed (its default on the card) against
+    its eager twin, on a flow that reads t (the model's + 0.05 sin(t)): the
+    same within GRAPH_TOL x max(1, max|ref|) at t = 0, 0.3, 0.9 after a
+    capture at 0, and the same (x, u) at another t moves the result."""
+    from wb_humanoid_mpc_tpu_torch.sim.dummy import PlantStep
+
+    model, x0 = _h23_model(card, form)
+
+    def flow(t, x, u):
+        return model.flow_map(t, x, u) + 0.05 * torch.sin(t)
+
+    graphed = PlantStep(flow, 0.02, card, torch.float32)
+    eager = PlantStep(flow, 0.02, card, torch.float32, graphs=False)
+    assert graphed.graph is not None and eager.graph is None
+    rng = np.random.default_rng(3)
+    x, u = x0 + 0.02 * rng.standard_normal(x0.size), rng.standard_normal(model.layout.input_dim)
+    outs = []
+    for t in (0.0, 0.3, 0.9):
+        got = graphed(t, x, u)
+        err, limit = _scaled(got, eager(t, x, u))
+        assert err <= limit, f"{form} t={t}: {err:.3e} > {limit:.3e}"
+        outs.append(got)
+        print(f"{form} plant step t={t}: graphed vs eager {err:.3e}")
+    assert np.abs(outs[2] - outs[0]).max() > 1e-4
+
+
+def test_graphed_staged_solver_matches_eager_on_the_card(card):
+    """`make_staged_sqp_solver` on the card replays one graph a phase; on a
+    time-dependent OCP (humanoid23, N = 28, f32, two iterations a call),
+    calls at t0 = 0, 0.4, 0.8 from the same start equal the eager staged
+    solve within GRAPH_TOL x max(1, max|ref|) with the same step, K1 and K2
+    launch as often graphed as eager (K1 once an iteration), the four phase
+    times are positive, and t0 moves the answer."""
+    from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WholeBodyOcp
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedStagedSolve
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_staged_sqp_solver
+
+    pb = build_wb_problem(ASSETS / "humanoid23", 28, device=card, dtype=torch.float32)
+    ocp = type("TimedWholeBodyOcp", (_TimedOcp, WholeBodyOcp), {})(model=pb.model, cfg=pb.cfg)
+    cfg = SqpSolverConfig(n_nodes=28, dt=pb.cfg.sqp.dt, sqp_iterations=2)
+    graphed = make_staged_sqp_solver(ocp, pb.model.flow_map, pb.bp, cfg, device=card)
+    eager = make_staged_sqp_solver(ocp, pb.model.flow_map, pb.bp, cfg, device=card,
+                                   graphs=False)
+    assert isinstance(graphed, GraphedStagedSolve) and not isinstance(eager, GraphedStagedSolve)
+    sols, counts = {}, {}
+    for name, solve in (("graphed", graphed), ("eager", eager)):
+        riccati.reset_launches()
+        fkvel.reset_launches()
+        sols[name] = [solve(t0, pb.x0, pb.traj, pb.params, pb.lam) for t0 in (0.0, 0.4, 0.8)]
+        torch.cuda.synchronize()
+        counts[name] = (riccati.LAUNCHES, fkvel.LAUNCHES)
+    assert counts["graphed"] == counts["eager"] and counts["graphed"][0] == 6, counts
+    for k, ((got, phases), (ref, _)) in enumerate(zip(sols["graphed"], sols["eager"])):
+        for what, a, b in (("xs", got.traj.xs, ref.traj.xs), ("us", got.traj.us, ref.traj.us),
+                           ("cost", got.cost, ref.cost)):
+            err, limit = _scaled(a, b)
+            assert err <= limit, f"call {k} {what}: {err:.3e} > {limit:.3e}"
+        assert float(got.step_size) == float(ref.step_size)
+        assert min(phases) > 0.0
+        print(f"staged call {k}: phases {dict(phases._asdict())}")
+    assert _moved(sols["graphed"][0][0], sols["graphed"][2][0]) > 1e-4
+
+
+def test_graphed_staged_solver_first_call_at_one_iteration(card):
+    """The first call of a graphed staged solver at one SQP iteration a call
+    (the default) runs that iteration eagerly and then only captures: its
+    trajectory, cost, g_norm, defect norm and step equal the eager staged
+    solve's within GRAPH_TOL x max(1, max|ref|), as do the next call's,
+    which replays."""
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_staged_sqp_solver
+
+    pb = build_wb_problem(ASSETS / "humanoid23", 28, device=card, dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=28, dt=pb.cfg.sqp.dt)
+    assert cfg.sqp_iterations == 1
+    graphed = make_staged_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=card)
+    eager = make_staged_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=card,
+                                   graphs=False)
+    traj = pb.traj
+    for k in range(2):
+        got, ref = (solve(0.1 * k, pb.x0, traj, pb.params, pb.lam)[0]
+                    for solve in (graphed, eager))
+        for what, a, b in (("xs", got.traj.xs, ref.traj.xs), ("us", got.traj.us, ref.traj.us),
+                           ("cost", got.cost, ref.cost), ("g_norm", got.g_norm, ref.g_norm),
+                           ("defect_norm", got.defect_norm, ref.defect_norm)):
+            err, limit = _scaled(a, b)
+            assert err <= limit, f"call {k} {what}: {err:.3e} > {limit:.3e}"
+        assert float(got.step_size) == float(ref.step_size), f"call {k}"
+        traj = got.traj
+    (s,) = graphed.sets.values()
+    assert len(s.graphs) == 4
+
+
+def test_controller_and_solve_capture_in_two_threads(card):
+    """Controllers capture and replay their graphs in this thread while
+    another thread captures and replays a graphed solve (thread-local
+    capture: neither refuses the other's work); every torque and solution
+    equals its eager twin's within GRAPH_TOL x max(1, max|ref|)."""
+    import threading
+
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import WBMrtController
+
+    pb, graphed, eager = _graphed_and_eager(card, 28, sqp_iterations=1)
+    start = threading.Barrier(2)
+    solves, errors = [], []
+
+    def solver():
+        try:
+            start.wait(timeout=60)
+            traj, lam = pb.traj, pb.lam
+            for _ in range(6):
+                sol = graphed(0.0, pb.x0, traj, pb.params, lam)
+                solves.append((traj, lam, sol))
+                traj, lam = sol.traj, sol.lam
+        except BaseException as e:   # handed to the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=solver, name="solver")
+    thread.start()
+    start.wait(timeout=60)
+    x0 = pb.x0.double().cpu().numpy()
+    pol = _policy(pb.model, x0, 4)
+    ctrls = [WBMrtController(pb.model, device=card) for _ in range(3)]
+    taus = [[c.compute(0.002 * k, x0, pol).ff_effort for k in range(30)] for c in ctrls]
+    thread.join(timeout=600)
+    assert not thread.is_alive() and not errors, errors
+    twin = WBMrtController(pb.model, device=card, graphs=False)
+    for c_taus in taus:
+        for k, tau in enumerate(c_taus):
+            err, limit = _scaled(tau, twin.compute(0.002 * k, x0, pol).ff_effort)
+            assert err <= limit, f"tick {k}: {err:.3e} > {limit:.3e}"
+    assert len(solves) == 6
+    for traj, lam, sol in solves:
+        ref = eager(0.0, pb.x0, traj, pb.params, lam)
+        for a, b in ((sol.traj.xs, ref.traj.xs), (sol.traj.us, ref.traj.us)):
+            err, limit = _scaled(a, b)
+            assert err <= limit, f"{err:.3e} > {limit:.3e}"
+
+
+def test_controller_capture_failure_raises(card, monkeypatch):
+    """An operation that reads the device inside the feed-forward (here
+    `.item()`) makes the controller's capture fail: compute raises, naming
+    the operation, and computes nothing eagerly instead."""
+    from wb_humanoid_mpc_tpu_torch.mpc.controller import WBMrtController
+
+    model, x0 = _h23_model(card, "wb")
+    orig = type(model).joint_torques
+
+    def reads_the_device(self, x, u):
+        if float(x.abs().max().item()) < 0:
+            raise AssertionError("unreachable")
+        return orig(self, x, u)
+
+    monkeypatch.setattr(type(model), "joint_torques", reads_the_device)
+    ctrl = WBMrtController(model, device=card)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the whole-body MRT "
+                                           "controller's feed-forward failed at "
+                                           ".*reads_the_device"):
+        ctrl.compute(0.0, x0, None)
+    (entry,) = ctrl.graph.entries.values()
+    assert not entry.graphs
+    torch.cuda.synchronize()

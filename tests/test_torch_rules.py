@@ -33,6 +33,7 @@ from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver, shar
 from wb_humanoid_mpc_tpu_torch.parallel.horizon import horizon_sharded_lq_solve
 from wb_humanoid_mpc_tpu_torch.parallel.multihost import make_mpc_mesh, run_ranks
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
+from wb_humanoid_mpc_tpu_torch.sim import dummy as sim_dummy
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
 from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import make_sharded_sqp_solver
@@ -385,24 +386,86 @@ def test_every_public_jax_name_has_a_counterpart():
 
 # ---- the compiled solve (`solver/graphs.py`) ----
 
-def test_graphs_on_the_cpu_raise(toy_problem):
+def _plant_step(pb, graphs):
+    step = sim_dummy.PlantStep(pb.model.flow_map, 0.02, torch.device("cpu"), torch.float64,
+                               graphs)
+    step(0.0, pb.x0.numpy(), pb.traj.us[0].numpy())
+    return step.graph
+
+
+def _dummy_sim(pb, graphs):
+    """The plant step run_dummy_sim makes (its runtime's first solve runs
+    after it)."""
+    made = []
+
+    class Spy(sim_dummy.PlantStep):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    runtime = types.SimpleNamespace(device=torch.device("cpu"), dtype=torch.float64)
+    orig, sim_dummy.PlantStep = sim_dummy.PlantStep, Spy
+    try:
+        with pytest.raises(AttributeError, match="advance"):
+            sim_dummy.run_dummy_sim(runtime, pb.x0.numpy(), 0.1, 50.0, 25.0,
+                                    flow=pb.model.flow_map, graphs=graphs)
+    finally:
+        sim_dummy.PlantStep = orig
+    return made[0].graph
+
+
+GRAPHED = {
+    # name -> (make(problem, graphs), is it graphed)
+    "make_sqp_solver": (lambda pb, graphs: make_sqp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt),
+        device="cpu", graphs=graphs), lambda made: isinstance(made, GraphedSqpSolve)),
+    "make_staged_sqp_solver": (lambda pb, graphs: make_staged_sqp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt),
+        device="cpu", graphs=graphs), lambda made: isinstance(made, GraphedSqpSolve)),
+    "WBMrtController": (lambda pb, graphs: WBMrtController(
+        pb.model, device="cpu", dtype=torch.float64, graphs=graphs),
+        lambda made: made.graph is not None),
+    "CentroidalMrtController": (lambda pb, graphs: CentroidalMrtController(
+        pb.model, device="cpu", dtype=torch.float64, graphs=graphs),
+        lambda made: made.graph is not None),
+    "PlantStep": (_plant_step, lambda made: made is not None),
+    "run_dummy_sim": (_dummy_sim, lambda made: made is not None),
+}
+
+
+@pytest.mark.parametrize("entry", list(GRAPHED))
+def test_graphs_on_the_cpu_raise(entry, toy_problem):
     """graphs=True asks for CUDA graphs: on the CPU it raises instead of
-    solving eagerly; graphs=None (the default) solves eagerly there."""
-    pb = toy_problem
-    cfg = SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt)
+    running eagerly; graphs=None (the default) and False run eagerly there.
+    (The whole-body toy problem's model stands in for the centroidal
+    controller's: only its construction is asked.)"""
+    make, graphed = GRAPHED[entry]
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
-        make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu", graphs=True)
-    solve = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cpu")
-    assert not isinstance(solve, GraphedSqpSolve)
+        make(toy_problem, True)
+    assert not graphed(make(toy_problem, None)) and not graphed(make(toy_problem, False))
 
 
-def test_graphed_entry_points_default_to_the_card_and_graphs():
-    """`make_sqp_solver` defaults to the card and to graphs there; the
-    batched solve takes its default (no keyword of its own)."""
-    params = inspect.signature(make_sqp_solver).parameters
-    assert params["device"].default == "cuda" and params["graphs"].default is None
-    params = inspect.signature(make_batched_solver).parameters
-    assert params["device"].default == "cuda" and "graphs" not in params
+# name -> (entry point, the default of its `device`: None where it runs on
+# its runtime's device, and of its `graphs`: absent where it takes another's)
+GRAPHED_DEFAULTS = {
+    "make_sqp_solver": (make_sqp_solver, "cuda", None),
+    "make_staged_sqp_solver": (make_staged_sqp_solver, "cuda", None),
+    "WBMrtController": (WBMrtController, "cuda", None),
+    "CentroidalMrtController": (CentroidalMrtController, "cuda", None),
+    "run_dummy_sim": (sim_dummy.run_dummy_sim, None, None),
+    "make_batched_solver": (make_batched_solver, "cuda", "absent"),
+}
+
+
+@pytest.mark.parametrize("entry", list(GRAPHED_DEFAULTS))
+def test_graphed_entry_points_default_to_the_card_and_graphs(entry):
+    """The graphed entry points default to the card and to graphs there; the
+    dummy sim steps its plant on its runtime's device; the batched solve
+    takes `make_sqp_solver`'s default (no keyword of its own)."""
+    fn, device, graphs = GRAPHED_DEFAULTS[entry]
+    params = inspect.signature(fn).parameters
+    assert (params["device"].default if "device" in params else None) == device
+    assert (params["graphs"].default if "graphs" in params else "absent") == graphs
 
 
 def test_graphs_module_imports_no_jax():

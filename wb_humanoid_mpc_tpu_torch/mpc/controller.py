@@ -10,11 +10,18 @@ reference's MRT controllers:
 - whole-body: `WBMpcMrtJointController.cpp:141-192`: feed-forward torques
   from `computeJointTorques(policyState, policyInput)` directly.
 
-Where JAX jits the feed-forward, the port runs it eagerly on the
-controller's device. On the card the controller owns a CUDA stream and does
-all its device work on it: the solver thread queues thousands of launches a
-solve on its own current stream, and a control tick must not wait behind
-them.
+Where JAX jits the feed-forward (`jax.jit(model.joint_torques)`, the
+centroidal `ff_torques`), the port captures it into one CUDA graph per
+controller on the card (`utils/graphs.py::GraphedFunction`, at the first
+`compute`; the weight-compensating fallback replays the same graph on other
+inputs) and replays it every tick; `graphs=False` computes it eagerly, op
+by op. On the card the controller owns a CUDA stream and does all its
+device work on it: the solver thread queues a solve's work on its
+own current stream, and a control tick must not wait behind it. A graphed
+tick copies its inputs into pinned host buffers, then (`non_blocking`) into
+the graph's static inputs, replays the graph, copies the torques into a
+pinned buffer and waits for its stream; the pinned buffers are reused only
+after that wait.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from wb_humanoid_mpc_tpu_torch.models import dynamics as dyn
 from wb_humanoid_mpc_tpu_torch.models import kinematics as kin
 from wb_humanoid_mpc_tpu_torch.ocp.params import weight_comp_input
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
+from wb_humanoid_mpc_tpu_torch.utils.graphs import GraphedFunction
 from wb_humanoid_mpc_tpu_torch.utils.rotations import (
     quat_to_rot,
     rot_to_euler_zyx,
@@ -68,25 +76,40 @@ def robot_state_to_generalized(base_pos, base_quat_wxyz, v_lin_local, omega_loca
     return q, v
 
 
+@dataclasses.dataclass
+class _Staging:
+    """Host buffers of a graphed tick: its inputs and, once known, the torques."""
+    inputs: list
+    out: torch.Tensor | None = None
+
+
 class _MrtController:
     """What both controllers share: the device, the controller's own CUDA
-    stream, the fallback input and the policy lookup."""
+    stream, the fallback input, the feed-forward function `feed_forward`
+    and, where it is graphed, its `graph`."""
 
     KP = 1200.0
     KD = 10.0
     KP_FIXED = 100.0
     KD_FIXED = 1.0
 
-    def __init__(self, model, policy_lead_time: float, device, dtype):
+    def __init__(self, model, policy_lead_time: float, device, dtype, graphs, feed_forward,
+                 name: str):
         self.model = model
         self.lead = policy_lead_time
         self.device = resolve_device(device)
         self.dtype = dtype
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        with self._on_stream():
-            self._u_comp = weight_comp_input(
-                model.robot.total_mass, model.robot.gravity,
-                torch.ones(2, dtype=dtype, device=self.device), model.layout.input_dim)
+        # float64 host values of the dtype's weight-compensating input
+        self._u_comp = weight_comp_input(
+            model.robot.total_mass, model.robot.gravity, torch.ones(2, dtype=dtype),
+            model.layout.input_dim).double().numpy()
+        self.feed_forward = feed_forward
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graph = (GraphedFunction(feed_forward, self.device, name, stream=self.stream)
+                      if graphs else None)
+        self._staging: _Staging | None = None
 
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
@@ -96,10 +119,29 @@ class _MrtController:
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=self.dtype,
                                device=self.device)
 
-    @staticmethod
-    def _numpy(t: torch.Tensor) -> np.ndarray:
-        # on the controller's stream: waits for this stream's work only
-        return t.double().cpu().numpy()
+    def _torques(self, *arrays) -> np.ndarray:
+        """feed_forward at host arrays, as float64 host values: on the card
+        one replay of its graph, else eagerly (both on the controller's
+        stream, waiting for its work only)."""
+        arrays = [np.asarray(a, dtype=np.float64) for a in arrays]
+        if self.graph is None:
+            with self._on_stream():
+                return self.feed_forward(*(self._tensor(a) for a in arrays)).double().cpu().numpy()
+        pin = self.device.type == "cuda"
+        if self._staging is None:
+            self._staging = _Staging([torch.empty(a.shape, dtype=self.dtype, pin_memory=pin)
+                                      for a in arrays])
+        stage = self._staging
+        for buf, a in zip(stage.inputs, arrays):
+            buf.copy_(torch.from_numpy(a))
+        with self._on_stream():
+            tau = self.graph.run(*stage.inputs, non_blocking=True)
+            if stage.out is None:
+                stage.out = torch.empty(tau.shape, dtype=tau.dtype, pin_memory=pin)
+            stage.out.copy_(tau, non_blocking=True)
+            if self.stream is not None:
+                self.stream.synchronize()
+        return stage.out.numpy().astype(np.float64)
 
     def _fallback(self, tau: np.ndarray) -> JointAction:
         n = self.model.layout.n_joints
@@ -108,14 +150,18 @@ class _MrtController:
 
 
 class CentroidalMrtController(_MrtController):
-    """kp/kd and the inverse-dynamics feedback gains of the reference controller."""
+    """kp/kd and the inverse-dynamics feedback gains of the reference
+    controller. `graphs`: None (the default) graphs the feed-forward
+    `ff_torques` on a CUDA device and runs it eagerly on the CPU; True
+    graphs it (raises on the CPU); False runs it eagerly."""
 
     ID_KP = 100.0   # error feedback on the desired joint accelerations
     ID_KD = 10.0
 
     def __init__(self, model, policy_lead_time: float = 0.005, *, device="cuda",
-                 dtype=torch.float32):
-        super().__init__(model, policy_lead_time, device, dtype)
+                 dtype=torch.float32, graphs: bool | None = None):
+        super().__init__(model, policy_lead_time, device, dtype, graphs, self.ff_torques,
+                         "the centroidal MRT controller's feed-forward")
 
     def ff_torques(self, x_obs: torch.Tensor, x_pol: torch.Tensor, u_pol: torch.Tensor):
         """Contact-consistent inverse-dynamics feed-forward at the observed
@@ -136,33 +182,32 @@ class CentroidalMrtController(_MrtController):
     def compute(self, t: float, x_obs: np.ndarray, policy) -> JointAction:
         lay = self.model.layout
         n = lay.n_joints
-        with self._on_stream():
-            x = self._tensor(x_obs)
-            if policy is None:
-                # weight-compensating fallback (reference :173-196)
-                return self._fallback(self._numpy(self.ff_torques(x, x, self._u_comp)))
-            x_pol, u_pol, _ = policy.evaluate(t + self.lead)
-            xp, up = self._tensor(x_pol), self._tensor(u_pol)
-            tau = self._numpy(self.ff_torques(x, xp, up))
+        if policy is None:
+            # weight-compensating fallback (reference :173-196)
+            return self._fallback(self._torques(x_obs, x_obs, self._u_comp))
+        x_pol, u_pol, _ = policy.evaluate(t + self.lead)
+        tau = self._torques(x_obs, x_pol, u_pol)
         return JointAction(q_des=np.asarray(lay.joint_angles(np.asarray(x_pol)), dtype=float),
                            qd_des=np.asarray(lay.joint_input(np.asarray(u_pol)), dtype=float),
                            kp=np.full(n, self.KP), kd=np.full(n, self.KD), ff_effort=tau)
 
 
 class WBMrtController(_MrtController):
+    """Feed-forward torques `model.joint_torques` at the policy's state and
+    input; `graphs` as for `CentroidalMrtController`."""
+
     def __init__(self, model, policy_lead_time: float = 0.005, *, device="cuda",
-                 dtype=torch.float32):
-        super().__init__(model, policy_lead_time, device, dtype)
+                 dtype=torch.float32, graphs: bool | None = None):
+        super().__init__(model, policy_lead_time, device, dtype, graphs, model.joint_torques,
+                         "the whole-body MRT controller's feed-forward")
 
     def compute(self, t: float, x_obs: np.ndarray, policy) -> JointAction:
         lay = self.model.layout
         n = lay.n_joints
-        with self._on_stream():
-            if policy is None:
-                tau = self.model.joint_torques(self._tensor(x_obs), self._u_comp)
-                return self._fallback(self._numpy(tau))
-            x_pol, u_pol, _ = policy.evaluate(t + self.lead)
-            tau = self._numpy(self.model.joint_torques(self._tensor(x_pol), self._tensor(u_pol)))
+        if policy is None:
+            return self._fallback(self._torques(x_obs, self._u_comp))
+        x_pol, u_pol, _ = policy.evaluate(t + self.lead)
+        tau = self._torques(x_pol, u_pol)
         return JointAction(q_des=np.asarray(lay.joint_angles(np.asarray(x_pol)), dtype=float),
                            qd_des=np.asarray(lay.joint_velocities(np.asarray(x_pol)), dtype=float),
                            kp=np.full(n, self.KP), kd=np.full(n, self.KD), ff_effort=tau)

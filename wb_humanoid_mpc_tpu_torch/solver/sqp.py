@@ -30,7 +30,8 @@ an iteration at its only host sync (`SqpIteration`: head, the filter's lower
 ladder, tail) and, on a CUDA device, captures the pieces into CUDA graphs
 once per problem shape and replays them on every call (`solver/graphs.py`);
 `make_sqp_solver(..., graphs=False)` is the eager twin. The staged solver
-stays eager: its phases are timed one by one.
+captures each of its phases into a graph of its own, so that each is timed
+apart, as JAX jits each.
 """
 
 from __future__ import annotations
@@ -364,74 +365,92 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *, devic
     return solve
 
 
+class StagedIteration(SqpIteration):
+    """The staged solver's four phases, each a program of its own (JAX's
+    jitted `f_lq`, `f_project`, `f_riccati` + `f_recover`, `f_linesearch`):
+    `make_staged_sqp_solver` runs them eagerly or as one CUDA graph each
+    (`solver/graphs.py`). The filter line search evaluates all steps at once
+    (the same rule as the two-stage ladder)."""
+
+    def lq(self, traj, times, params, lam):
+        return self.fns.lq_approximation(traj, times, params, lam, self.rho_lq)
+
+    def project(self, lq):
+        reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, self.cfg.proj_eps)
+        return levenberg_damp(reduced, self.cfg.reg), proj
+
+    def riccati(self, reduced, proj, dx0):
+        dxs, dzs = _solve_lq(reduced, dx0, self.cfg)
+        return dxs, recover_controls(proj, dxs, dzs)
+
+    def linesearch(self, traj, times, params, c0, v0, dxs, dus, alphas):
+        cfg = self.cfg
+        cs, vs = self.fns.candidate_perf(_candidates(traj, alphas, dxs, dus), times, params)
+        ok = filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
+        alpha = _first_true(alphas, ok)
+        new_traj = _step(traj, alpha, dxs, dus)
+        g = self.fns.eq_residuals(new_traj, times, params)
+        return new_traj, alpha, torch.amax(torch.abs(g))
+
+    def staged_solution(self, traj, lam, cost, alpha, g_max, times,
+                        iterations: int) -> SqpSolution:
+        d = self.fns.defects(traj, times)
+        return SqpSolution(traj=traj, lam=lam, cost=cost, g_norm=g_max,
+                           defect_norm=torch.amax(torch.abs(d)), step_size=alpha,
+                           iterations=iterations)
+
+
 def make_staged_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *,
-                           device="cuda") -> Callable:
+                           device="cuda", graphs: bool | None = None) -> Callable:
     """Per-phase-timed SQP solve (the diagnostic twin of `make_sqp_solver`,
     projection path only). Each phase ends with `torch.cuda.synchronize()` on
     the card (JAX's `block_until_ready`), so its wall time includes its device
-    time; on the CPU nothing is asynchronous. The filter line search
-    evaluates all steps at once (the same rule as the two-stage ladder).
+    time; on the CPU nothing is asynchronous. `graphs` as for
+    `make_sqp_solver`: on the card each phase replays a CUDA graph of its own
+    (captured at the first call of a problem shape, whose first iteration
+    runs eagerly), so a phase's time is its device time and one dispatch;
+    graphs=False runs the phases eagerly.
 
     Returns solve(t0, x0, init_traj, params, lam) -> (SqpSolution, PhaseTimings)."""
     _check_config(cfg)
     if cfg.equality_handling != "projection":
         raise ValueError("staged solver only implements the projection path")
     dev = resolve_device(device)
-    fns = _lq_functions(ocp, flow, bp, cfg)
-    rho_lq = _rho_lq(cfg)
-    ladders: dict = {}   # the step ladder, made once per dtype
+    it = StagedIteration(ocp, flow, bp, cfg)
+    if graphs is None:
+        graphs = dev.type == "cuda"
+    if graphs:
+        from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedStagedSolve
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        return GraphedStagedSolve(it, dev)
 
     def timed(fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        sync()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t0
-
-    def f_project(lq):
-        reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
-        return levenberg_damp(reduced, cfg.reg), proj
-
-    def f_riccati(reduced, proj, dx0):
-        dxs, dzs = _solve_lq(reduced, dx0, cfg)
-        return dxs, recover_controls(proj, dxs, dzs)
-
-    def f_linesearch(traj, times, params, c0, v0, dxs, dus, alphas):
-        cs, vs = fns.candidate_perf(_candidates(traj, alphas, dxs, dus), times, params)
-        ok = filter_accept(c0, v0, cs, vs, cfg.filter_g_max, cfg.filter_g_min)
-        alpha = _first_true(alphas, ok)
-        new_traj = _step(traj, alpha, dxs, dus)
-        g = fns.eq_residuals(new_traj, times, params)
-        return new_traj, alpha, torch.amax(torch.abs(g))
 
     def solve(t0, x0, init_traj: Trajectory, params, lam):
         if x0.device != dev or init_traj.xs.device != dev:
             raise ValueError(f"solver built for {dev}, got tensors on {x0.device}")
         times = _times(t0, x0, cfg)
-        if x0.dtype not in ladders:
-            ladders[x0.dtype] = torch.tensor(cfg.alphas, dtype=x0.dtype, device=dev)
-        alphas = ladders[x0.dtype]
+        alphas = it.alphas(x0)
         traj = init_traj
         spent = dict(lq=0.0, projection=0.0, riccati=0.0, linesearch=0.0)
         alpha = g_max = torch.zeros((), dtype=x0.dtype, device=dev)
         lq = None
         for _ in range(cfg.sqp_iterations):
-            lq, t = timed(fns.lq_approximation, traj, times, params, lam, rho_lq)
+            lq, t = timed(it.lq, traj, times, params, lam)
             spent["lq"] += t
-            (reduced, proj), t = timed(f_project, lq)
+            (reduced, proj), t = timed(it.project, lq)
             spent["projection"] += t
-            (dxs, dus), t = timed(f_riccati, reduced, proj, x0 - traj.xs[0])
+            (dxs, dus), t = timed(it.riccati, reduced, proj, x0 - traj.xs[0])
             spent["riccati"] += t
-            (traj, alpha, g_max), t = timed(f_linesearch, traj, times, params, lq.cost_pure,
+            (traj, alpha, g_max), t = timed(it.linesearch, traj, times, params, lq.cost_pure,
                                             lq.viol, dxs, dus, alphas)
             spent["linesearch"] += t
-        d = fns.defects(traj, times)
-        sol = SqpSolution(traj=traj, lam=lam, cost=lq.cost, g_norm=g_max,
-                          defect_norm=torch.amax(torch.abs(d)), step_size=alpha,
-                          iterations=cfg.sqp_iterations)
+        sol = it.staged_solution(traj, lam, lq.cost, alpha, g_max, times, cfg.sqp_iterations)
         return sol, PhaseTimings(**spent)
 
     return solve
