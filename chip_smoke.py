@@ -41,8 +41,10 @@ rows), the stance setup of `bench.py`, in float32:
 - the 2-D (batch x horizon) sharded solve, the port's `dryrun_multichip`:
   the walking schedule, 2 SQP iterations, f32 and f64, on a 1x1 mesh
   (`nccl`) and on 1x4 and 2x4 meshes of `gloo` ranks on this one card
-  (`parallel/multihost.py::run_ranks`), against `make_batched_solver`, and
-  K2 at the sharded path's row counts;
+  (`parallel/multihost.py::run_ranks`), as CUDA graphs against its eager
+  twin (and both against `make_batched_solver`), K2 and the collectives
+  per iteration under replay, ms an iteration graphed and eager in turns,
+  and K2 at the sharded path's row counts;
 - the launch CLI in-process, as a user runs it: `dummy-sim --formulation wb`
   (1.0 s at 50 / 25 Hz, `--log-csv`; its plant step graphed against eager)
   and `bench-batched --batch 8`;
@@ -55,10 +57,12 @@ rows), the stance setup of `bench.py`, in float32:
   (centroidal), and the three-thread `run_threaded_robot_sim`; without
   mujoco it prints a line that says so and runs none of it.
 
-Every path but the DDP and sharded solvers runs its SQP solves as CUDA
-graphs, as a user gets them on the card (the staged solver one graph a
-phase), and so do the MRT controllers and the dummy plant; a replay adds
-the launches its graph holds to the kernels' counts. Each graph is held
+Every path but the DDP solver runs its SQP solves as CUDA graphs, as a
+user gets them on the card (the staged solver one graph a phase, the
+sharded solver one graph a part between its collectives on `gloo` and one
+an iteration on `nccl`), and so do the MRT controllers and the dummy plant;
+a replay adds the launches its graph holds to the kernels' counts (and the
+collectives it holds to theirs). Each graph is held
 against its eager twin at GRAPH_TOL x max(1, max|ref|) (the same kernels
 on the same values: expected 0). Each path checks that its kernels
 were launched as the configuration implies, that the result is finite and
@@ -1095,19 +1099,29 @@ SHARDED_LIMIT = {"float32": 1e-4, "float64": 1e-8}
 # merit's rollout, 3 stages each through `flow_batch` (k1 comes with the
 # node terms, `ocp.fused_node`)
 K2_PER_SHARDED_ITERATION = 3 + 3 + 3
+# the collectives of one sharded SQP iteration on every rank, and at the end
+SHARDED_COLLECTIVES = {"all_gather": 6, "all_reduce": 5}
+SHARDED_FINAL_GATHERS = 2
+SHARDED_PAIRS = 4   # graphed and eager solves in turns, f32
 
 
 def sharded_rank(cases) -> list:
     """One rank of the `sharded` phase: `dryrun.sharded_sqp_case` for each
-    case, K2's last launch at each row count kept; rank (0, 0) returns those
-    launches' inputs and outputs as numpy, for the parent to hold against the
-    plain version."""
+    case, K2's last launch at each row count that a graph recorded kept
+    (refreshed by every replay); rank (0, 0) returns those launches' inputs
+    and outputs as numpy, for the parent to hold against the plain
+    version."""
+    import torch
+
     from wb_humanoid_mpc_tpu_torch.ops import fkvel
     from wb_humanoid_mpc_tpu_torch.parallel.dryrun import sharded_sqp_case
 
+    def rows_in_a_graph(model, q, v):
+        return q.shape[0] if torch.cuda.is_current_stream_capturing() else None
+
     out = []
     for case in cases:
-        rec = LaunchRecorder(fkvel, "fkvel_cuda", lambda model, q, v: q.shape[0], case["device"])
+        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_in_a_graph, case["device"])
         try:
             r = sharded_sqp_case(**case)
         finally:
@@ -1116,8 +1130,82 @@ def sharded_rank(cases) -> list:
         r["k2_last"] = {} if r["coords"] != (0, 0) else {
             rows: ([a.cpu().numpy() for a in args[1:]],
                    [t.cpu().numpy() for t in list(got[0]) + list(got[1])])
-            for rows, (args, _, got) in caps.items()}
+            for rows, (args, _, got) in caps.items() if rows is not None}
         out.append(r)
+    return out
+
+
+def _sharded_checks(outs: list, what: str, backend: str, B: int, ref) -> dict:
+    """Every rank's graphed solve and its eager twin from one mesh and dtype:
+    the same whole solution on every rank, graphed against eager at
+    GRAPH_TOL, both against `make_batched_solver` (`ref`: xs, steps) at
+    SHARDED_GATE and SHARDED_LIMIT with the same steps, K2 and the
+    collectives per iteration under replay, the graphs of the backend's cut.
+    Returns the readings."""
+    o = next(r for r in outs if r["coords"] == (0, 0))
+    dt = o["xs"].dtype.name
+    n_gr = 9 + 2 if backend == "gloo" else 1 + 1    # graphs: one a part, or one a program
+    n_eager = (sum(SHARDED_COLLECTIVES.values()) + SHARDED_FINAL_GATHERS
+               if backend == "gloo" else 0)
+    want_coll = {c: n * SHARDED_ITERS + SHARDED_FINAL_GATHERS * (c == "all_gather")
+                 for c, n in SHARDED_COLLECTIVES.items()}
+    graph_err = 0.0
+    for r in outs:
+        where = f"{what}: rank {r['coords']}"
+        for key in ("xs", "us", "cost", "step_size"):
+            if not np.array_equal(r[key], o[key]):
+                raise AssertionError(f"{where} returned another {key}")
+        if r["k2_launches"] != K2_PER_SHARDED_ITERATION * SHARDED_ITERS:
+            raise AssertionError(f"{where} launched K2 {r['k2_launches']} times in "
+                                 f"{SHARDED_ITERS} iterations, the plan says "
+                                 f"{K2_PER_SHARDED_ITERATION} an iteration")
+        if r["collectives"] != want_coll:
+            raise AssertionError(f"{where} ran the collectives {r['collectives']}, the plan "
+                                 f"says {want_coll}")
+        g = r["graphed"]
+        if g is None or g["graphs"] != n_gr or g["eager_collectives"] != n_eager:
+            raise AssertionError(f"{where}: graphs {g}, {backend} cuts into {n_gr} graphs with "
+                                 f"{n_eager} collectives between them")
+        for key in ("xs", "us", "cost", "g_norm", "defect_norm"):
+            a, b = r[key], r["eager"][key]
+            err = float(np.abs(a.astype(np.float64) - b).max())
+            if not err <= GRAPH_TOL * max(1.0, float(np.abs(b).max())):
+                raise AssertionError(f"{where}: graphed {key} differs from eager by {err:.3e}")
+            graph_err = max(graph_err, err)
+        if not np.array_equal(r["step_size"], r["eager"]["step_size"]):
+            raise AssertionError(f"{where}: graphed steps {r['step_size']}, eager "
+                                 f"{r['eager']['step_size']}")
+    if not (np.isfinite(o["xs"]).all() and np.isfinite(o["cost"]).all()):
+        raise AssertionError(f"{what}: non-finite result")
+    ref_xs, ref_steps = ref
+    limit = SHARDED_LIMIT[dt] * max(1.0, float(np.abs(ref_xs).max()))
+    errs = {}
+    for side, sol in (("graphed", o), ("eager", o["eager"])):
+        errs[side] = float(np.abs(sol["xs"] - ref_xs).max())
+        if not errs[side] < min(SHARDED_GATE[dt], limit):
+            raise AssertionError(f"{what} {side}: max |dxs| vs make_batched_solver "
+                                 f"{errs[side]:.3e}, gate {SHARDED_GATE[dt]}, limit {limit:.3e}")
+        if not np.array_equal(sol["step_size"], ref_steps):
+            raise AssertionError(f"{what} {side}: steps {sol['step_size']}, batched {ref_steps}")
+    coll = {c: (n - SHARDED_FINAL_GATHERS * (c == "all_gather")) / SHARDED_ITERS
+            for c, n in o["collectives"].items()}
+    out = dict(backend=backend, ranks=len(outs), batch=B, max_abs_dxs=errs["graphed"],
+               max_abs_dxs_eager=errs["eager"], dxs_limit=limit, graphed_minus_eager=graph_err,
+               steps=o["step_size"].tolist(), k2_per_rank=o["k2_launches"],
+               collectives_per_iteration=coll, graphs=o["graphed"]["graphs"],
+               segments=o["graphed"]["segments"],
+               eager_collectives=o["graphed"]["eager_collectives"],
+               capture_s=[r["graphed"]["capture_s"] for r in outs],
+               warmup_s=[r["graphed"]["warmup_s"] for r in outs],
+               pool_bytes=[r["graphed"]["pool_bytes"] for r in outs],
+               first_solve_s=max(r["first_s"] for r in outs))
+    if o["ms_per_iteration"] is not None:
+        # each pair on the slowest rank
+        for side in ("graphed", "eager"):
+            per_pair = [max(r["ms_per_iteration"][side][i] for r in outs)
+                        for i in range(SHARDED_PAIRS)]
+            out[f"ms_per_iteration_{side}"] = per_pair
+            out[f"ms_per_iteration_{side}_median"] = float(np.median(per_pair))
     return out
 
 
@@ -1126,13 +1214,18 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
     humanoid23 at N = 28, the walking schedule, B = 2 n_dp instances, 2 SQP
     iterations, f32 and f64, on the meshes of SHARDED_MESHES (`nccl` for the
     single rank; `gloo` for several ranks on the one card, as NCCL refuses
-    two ranks on one GPU). Every rank's whole solution against
-    `make_batched_solver` on the card (SHARDED_GATE and the tighter
-    SHARDED_LIMIT, the same steps), K2's
-    launches per rank per iteration against the plan, the wall time of an
-    iteration (f32) and the collectives an iteration; K2's last launch at
-    each of the path's row counts on the 1x1 and 2x4 meshes against its plain
-    version. Adds K2's sharded rows."""
+    two ranks on one GPU), as CUDA graphs (`make_sharded_sqp_solver`'s
+    default: on `gloo` one graph a part with the collectives between the
+    replays, on `nccl` one graph an iteration with its collectives inside)
+    and by the eager twin. Every rank's whole solution graphed against
+    eager (GRAPH_TOL) and both against `make_batched_solver` on the card
+    (SHARDED_GATE and the tighter SHARDED_LIMIT, the same steps), K2's
+    launches and the collectives per rank per iteration under replay
+    against the plan, the graphs, capture seconds and capture memory of
+    each rank, the wall ms of an iteration graphed and eager in
+    SHARDED_PAIRS pairs (f32, the slowest rank of each); K2's last launch
+    in a graph at each of the path's row counts on the 1x1 and 2x4 meshes
+    against its plain version. Adds K2's sharded rows."""
     from wb_humanoid_mpc_tpu_torch.interface import ASSETS, load_wb_model
     from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver
     from wb_humanoid_mpc_tpu_torch.parallel.dryrun import walking_problem
@@ -1155,7 +1248,8 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
         world, B = n_dp * n_h, 2 * n_dp
         cases = [dict(robot="humanoid23", n_nodes=N_NODES, batch=B, n_dp=n_dp, n_h=n_h,
                       backend=backend, device=device, dtype=dt, iterations=SHARDED_ITERS,
-                      timed_solves=2 if dt == "float32" else 0) for dt in SHARDED_GATE]
+                      twin=True, timed_pairs=SHARDED_PAIRS if dt == "float32" else 0)
+                 for dt in SHARDED_GATE]
         t0 = time.perf_counter()
         ranks = run_ranks(sharded_rank, world, backend, device, cases, timeout_s=900.0)
         wall = time.perf_counter() - t0
@@ -1163,47 +1257,27 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
             outs = [r[k] for r in ranks]
             o = next(r for r in outs if r["coords"] == (0, 0))
             what = f"sharded {label} ({backend}) {dt}"
-            for r in outs:
-                for key in ("xs", "us", "cost", "step_size"):
-                    if not np.array_equal(r[key], o[key]):
-                        raise AssertionError(f"{what}: rank {r['coords']} returned another {key}")
-                if r["k2_launches"] != K2_PER_SHARDED_ITERATION * SHARDED_ITERS:
-                    raise AssertionError(f"{what}: rank {r['coords']} launched K2 "
-                                         f"{r['k2_launches']} times in {SHARDED_ITERS} "
-                                         f"iterations, the plan says "
-                                         f"{K2_PER_SHARDED_ITERATION} an iteration")
-            if not (np.isfinite(o["xs"]).all() and np.isfinite(o["cost"]).all()):
-                raise AssertionError(f"{what}: non-finite result")
-            ref_xs, ref_steps = refs[(B, dt)]
-            err = float(np.abs(o["xs"] - ref_xs).max())
-            limit = SHARDED_LIMIT[dt] * max(1.0, float(np.abs(ref_xs).max()))
-            if not err < min(SHARDED_GATE[dt], limit):
-                raise AssertionError(f"{what}: max |dxs| vs make_batched_solver {err:.3e}, "
-                                     f"gate {SHARDED_GATE[dt]}, limit {limit:.3e}")
-            if not np.array_equal(o["step_size"], ref_steps):
-                raise AssertionError(f"{what}: steps {o['step_size']}, batched {ref_steps}")
-            coll = {c: (n - 2 * (c == "all_gather")) / SHARDED_ITERS
-                    for c, n in o["collectives"].items()}
-            ms = [r["ms_per_iteration"] for r in outs]
-            report[f"{label} {dt}"] = dict(
-                backend=backend, ranks=world, batch=B, max_abs_dxs=err, dxs_limit=limit,
-                steps=o["step_size"].tolist(), k2_per_rank=o["k2_launches"],
-                collectives_per_iteration=coll, first_solve_s=max(r["first_s"] for r in outs),
-                ms_per_iteration=None if ms[0] is None else max(ms),
-                ms_per_iteration_rank0=o["ms_per_iteration"], spawn_and_run_s=wall)
-            print(f"sharded {label} {backend} {dt}: {world} rank(s), B = {B}; max|dxs| vs "
-                  f"make_batched_solver {err:.3e} (gate {SHARDED_GATE[dt]}, limit "
-                  f"{limit:.3e}); steps "
-                  f"{o['step_size'].tolist()} (batched the same); K2 "
-                  f"{o['k2_launches']} launches on every rank in {SHARDED_ITERS} iterations; "
-                  f"collectives per iteration on each rank {coll} (+2 all_gather at the end); "
-                  f"first solve {report[f'{label} {dt}']['first_solve_s']:.2f} s"
-                  + ("" if ms[0] is None else
-                     f"; {max(ms):.2f} ms per sharded SQP iteration (slowest rank; rank 0 "
-                     f"{o['ms_per_iteration']:.2f})") + f"; spawn + run {wall:.1f} s | {card}")
+            rep = report[f"{label} {dt}"] = _sharded_checks(outs, what, backend, B,
+                                                            refs[(B, dt)])
+            rep["spawn_and_run_s"] = wall
+            timing = ("" if "ms_per_iteration_graphed" not in rep else
+                      f"; ms per sharded SQP iteration (slowest rank, {SHARDED_PAIRS} pairs in "
+                      f"turns) graphed {rep['ms_per_iteration_graphed']} eager "
+                      f"{rep['ms_per_iteration_eager']}")
+            print(f"sharded {label} {backend} {dt}: {world} rank(s), B = {B}; graphed - eager "
+                  f"{rep['graphed_minus_eager']:.3e}; max|dxs| vs make_batched_solver graphed "
+                  f"{rep['max_abs_dxs']:.3e} eager {rep['max_abs_dxs_eager']:.3e} (gate "
+                  f"{SHARDED_GATE[dt]}, limit {rep['dxs_limit']:.3e}); steps {rep['steps']} "
+                  f"(batched the same); K2 {o['k2_launches']} launches on every rank in "
+                  f"{SHARDED_ITERS} iterations; collectives per iteration on each rank "
+                  f"{rep['collectives_per_iteration']} (+{SHARDED_FINAL_GATHERS} all_gather at "
+                  f"the end); {rep['graphs']} graphs ({rep['segments']}), "
+                  f"{rep['eager_collectives']} collectives between replays; capture s per "
+                  f"rank {rep['capture_s']}, pool bytes {rep['pool_bytes']}; first solve "
+                  f"{rep['first_solve_s']:.2f} s{timing}; spawn + run {wall:.1f} s | {card}")
             if dt != "float32" or label not in ("1x1", "2x4"):
                 continue
-            # K2 at this mesh's row counts: the path's last launch of each size
+            # K2 at this mesh's row counts: a replay's last launch of each size
             for n_rows, (args, got) in sorted(o["k2_last"].items()):
                 q, v = (torch.as_tensor(a, device=device) for a in args)
                 got = [torch.as_tensor(a, device=device) for a in got]
@@ -1222,7 +1296,8 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
                                     launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
                 print(f"K2 fkvel sharded {label} rows={n_rows} (rank 0's last launch of that "
-                      f"size, {launches} of its launches): max|kernel-plain| {err:.3e}; kernel "
+                      f"size in a graph's replay, {launches} of its launches in the graphed "
+                      f"solve): max|kernel-plain| {err:.3e}; kernel "
                       f"{t_dev * 1e3:.2f} us on the device; plain {t_p * 1e3:.1f} us per call; "
                       f"bound {b_ms * 1e3:.4f} us ({b_by}), {100 * b_ms / t_dev:.2f} % of it "
                       f"| {card}")

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests._graphs_common import TIME_GAIN, TimedPortOcp
 from tests.test_torch_common import DTYPES, jax_wb, port_problem, to_numpy
 from wb_humanoid_mpc_tpu.ocp.params import weight_comp_input
 from wb_humanoid_mpc_tpu.ocp.wb_ocp import WholeBodyOcp as JaxWholeBodyOcp
@@ -28,23 +29,12 @@ from wb_humanoid_mpc_tpu.ocp.wb_ocp import make_wb_node_params
 from wb_humanoid_mpc_tpu.refs.swing import SwingReference
 from wb_humanoid_mpc_tpu.solver.transcription import Trajectory as JaxTrajectory
 from wb_humanoid_mpc_tpu_torch.interface import stance_reference
-from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WholeBodyOcp as PortWholeBodyOcp
 from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpIteration, SqpSolverConfig, make_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 
-TIME_GAIN = 0.05
 SPREAD = np.array([0.005, 0.005, 0.05])   # x0 noise a row: the third row needs the lower ladder
 FIELDS = ("xs", "us", "lam", "cost", "g_norm", "defect_norm", "step_size")
-
-
-class TimedPortOcp(PortWholeBodyOcp):
-    def fused_node(self, t, x, u, p):
-        terms, xdot = super().fused_node(t, x, u, p)
-        return terms._replace(r=terms.r + TIME_GAIN * torch.sin(t)[..., None]), xdot
-
-    def terminal_residual(self, t, x, p):
-        return super().terminal_residual(t, x, p) + TIME_GAIN * torch.sin(t)[..., None]
 
 
 class TimedJaxOcp(JaxWholeBodyOcp):

@@ -16,8 +16,10 @@ CLI's `dummy-sim` and, where the machine has mujoco, a short MuJoCo loop
 run on the card with their launch counts checked; so does the bench entry
 (`tools.bench.main`, N = 28); `solver/priccati.py::_combine` on the card
 gives the CPU's non-finite pattern on a singular combine matrix, without a
-raise. The compiled solve (`solver/graphs.py`): graphed against eager on
-the main path, t0 read at every replay, the recapture after a gain update,
+raise. The compiled sharded solve: graphed against eager on a 1 x 1
+`nccl` mesh (collectives inside the graphs) and a 1 x 2 `gloo` mesh (the
+graphs cut at each collective). The compiled solve (`solver/graphs.py`):
+graphed against eager on the main path, t0 read at every replay, the recapture after a gain update,
 the launch counters under replay, a failed capture raising, and the MRT
 solver thread capturing beside the controller. The compiled control tick:
 each MRT controller's graphed feed-forward, the dummy plant's graphed RK4
@@ -426,6 +428,44 @@ def test_sharded_solve_on_the_card(card):
                 scale = max(1.0, float(np.abs(twin[name]).max()))
                 assert float(np.abs(got[name] - twin[name]).max()) <= tol * scale, (dt, name)
             np.testing.assert_array_equal(got["step_size"], twin["step_size"])
+
+
+def test_graphed_sharded_solve_matches_eager_on_the_card(card):
+    """`make_sharded_sqp_solver`'s CUDA graphs (`GraphedShardedSolve`)
+    against its eager twin (`dryrun.sharded_graphs_case`: humanoid23 walk,
+    N = 6, B = 2, two SQP iterations, f64, every residual shifted by 0.05
+    sin(t), two calls of other t0 and x0s): on a 1 x 1 `nccl` mesh one graph
+    an iteration and one for the final gathers, the collectives inside; on
+    a 1 x 2 `gloo` mesh one graph a part, the 13 collectives between the
+    replays. The same solutions within 1e-9 x max(1, max|ref|) (expected 0)
+    and the same steps, both calls (the second shows that t0 is read at
+    every replay); K2 9 and the collectives 11 times an iteration (+2
+    gathers) on every rank, every call."""
+    # by its directory, which pytest puts on sys.path: a package named
+    # `tests` installed elsewhere may shadow this repo's `tests.`
+    from _graphs_common import TimedPortOcp
+    from wb_humanoid_mpc_tpu_torch.parallel import dryrun
+    from wb_humanoid_mpc_tpu_torch.parallel.multihost import run_ranks
+
+    iters = 2
+    case = dict(robot="humanoid23", n_nodes=6, batch=2, n_dp=1, device="cuda", dtype="float64",
+                iterations=iters, ocp_cls=TimedPortOcp)
+    for backend, n_h, n_graphs, between in (("nccl", 1, 2, 0), ("gloo", 2, 11, 13)):
+        ranks = run_ranks(dryrun.run_cases, n_h, backend, "cuda",
+                          [(dryrun.sharded_graphs_case, dict(case, n_h=n_h, backend=backend))],
+                          timeout_s=600.0)
+        for (r,) in ranks:
+            assert r["report"]["graphs"] == n_graphs, (backend, r["report"])
+            assert r["report"]["eager_collectives"] == between, (backend, r["report"])
+            for call, (got, ref) in enumerate(zip(r["graphed"], r["eager"])):
+                for name in ("xs", "us", "cost", "g_norm", "defect_norm"):
+                    scale = max(1.0, float(np.abs(ref[name]).max()))
+                    err = float(np.abs(got[name] - ref[name]).max())
+                    assert err <= 1e-9 * scale, (backend, call, name, err)
+                np.testing.assert_array_equal(got["step_size"], ref["step_size"])
+            assert r["k2_launches"] == [9 * iters] * 2, (backend, r["k2_launches"])
+            assert r["collectives"] == [{"all_gather": 6 * iters + 2,
+                                         "all_reduce": 5 * iters}] * 2, (backend, r["collectives"])
 
 
 def test_launch_dummy_sim_on_the_card(card, tmp_path):

@@ -9,15 +9,16 @@ without running them, so any tensor a piece creates while capturing holds
 no value until a replay; whatever the host reads after the first call must
 have come from the warm-up, through a static buffer. A CPU has no CUDA
 graphs, so `PieceGraphs`' warm-up runs the pieces eagerly here and its
-capture runs each piece under `_Capturing`, a dispatch mode that gives every
-result a meaningless value (NaN, or 0 for integers and booleans), leaves
-every written tensor as it was and refuses host reads, as a capture does; a
-replay runs the piece eagerly. The runners of `capture=False` are switched
-to capture so, on the same buffers; each program's first and second calls
-are held against its eager twin (`graphs=False`) bit for bit, at
-humanoid23's width, float64: one and two iterations a call for the solve
-and the staged solver, both formulations for the controllers and the plant
-step."""
+capture runs each piece under `Capturing` (tests/_graphs_common.py), a
+dispatch mode that gives every result a meaningless value (NaN, or 0 for
+integers and booleans), leaves every written tensor as it was and refuses
+host reads, as a capture does; a replay runs the piece eagerly. The
+runners of `capture=False` are switched to capture so, on the same buffers;
+each program's first and second calls are held against its eager twin
+(`graphs=False`) bit for bit, at humanoid23's width, float64: one and two
+iterations a call for the solve and the staged solver, both formulations
+for the controllers and the plant step. The sharded solve's first call is
+tests/test_torch_graphed_sharded.py's."""
 
 from __future__ import annotations
 
@@ -26,10 +27,8 @@ import functools
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_map
 
-from tests._graphs_cases import TimedPortOcp
+from tests._graphs_common import Capturing, TimedPortOcp, capture_all, warm_up
 from tests.test_torch_common import NO_BATCHING_FALLBACK, port_centroidal, port_wb
 from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem
 from wb_humanoid_mpc_tpu_torch.mpc import controller
@@ -54,61 +53,10 @@ CPU = torch.device("cpu")
 SOLUTION = ("xs", "us", "lam", "cost", "g_norm", "defect_norm", "step_size")
 
 
-def _meaningless(t):
-    if not isinstance(t, torch.Tensor):
-        return t
-    if t.is_floating_point():
-        return torch.full_like(t, float("nan"))
-    return torch.zeros_like(t)
-
-
-class _Capturing(TorchDispatchMode):
-    """A capture's view of the operations it records: none runs."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise RuntimeError(f"a capture refuses a host read ({func})")
-        schema = func._schema
-        if schema.is_mutable:
-            # recorded, not run: the tensor it writes keeps its values
-            if not schema.returns:
-                return None
-            if "out" in kwargs:
-                return kwargs["out"]
-            if schema.name.endswith("_"):
-                return args[0]
-            raise NotImplementedError(f"the emulated capture does not know {func}")
-        return tree_map(_meaningless, func(*args, **kwargs))
-
-
-class _Replay:
-    def __init__(self, run):
-        self.replay = run
-
-
-def _warm_up(self):
-    spent = {}
-    for piece in self.pieces:
-        piece.run()
-        spent[piece.name] = 0.0
-    self.warmup_s = 0.0
-    return spent
-
-
-def _capture_all(self):
-    for piece in self.pieces:
-        with _Capturing():
-            piece.run()
-        self.graphs[piece.name] = _Replay(piece.run)
-        self.held[piece.name] = {}
-    self.capture_s, self.pool_bytes = 0.0, 0
-
-
 @pytest.fixture
 def emulated_capture(monkeypatch):
-    monkeypatch.setattr(graphs.PieceGraphs, "_warm_up", _warm_up)
-    monkeypatch.setattr(graphs.PieceGraphs, "_capture_all", _capture_all)
+    monkeypatch.setattr(graphs.PieceGraphs, "_warm_up", warm_up)
+    monkeypatch.setattr(graphs.PieceGraphs, "_capture_all", capture_all)
 
 
 def _capturing(runner):
@@ -142,7 +90,7 @@ def test_emulated_capture_leaves_no_value():
     """The emulation itself: what a piece computes while capturing holds no
     value, and a tensor it writes keeps its own."""
     buf = torch.ones(3, dtype=torch.float64)
-    with _Capturing():
+    with Capturing():
         y = torch.sin(buf) + 1.0
         buf.copy_(y)
         with pytest.raises(RuntimeError, match="host read"):

@@ -31,11 +31,11 @@ from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel, riccati, rollout
 from wb_humanoid_mpc_tpu_torch.parallel import dryrun
 from wb_humanoid_mpc_tpu_torch.parallel.batched import make_batched_solver, shard_batched_solver
 from wb_humanoid_mpc_tpu_torch.parallel.horizon import horizon_sharded_lq_solve
-from wb_humanoid_mpc_tpu_torch.parallel.multihost import make_mpc_mesh, run_ranks
+from wb_humanoid_mpc_tpu_torch.parallel.multihost import MpcMesh, make_mpc_mesh, run_ranks
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_throughput
 from wb_humanoid_mpc_tpu_torch.sim import dummy as sim_dummy
 from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
-from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedShardedSolve, GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import make_sharded_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import (
     SqpSolverConfig,
@@ -414,6 +414,13 @@ def _dummy_sim(pb, graphs):
     return made[0].graph
 
 
+def _one_rank_mesh():
+    """A 1 x 1 mesh on the CPU with no process group: enough to build a
+    sharded solver, not to call it."""
+    return MpcMesh(grid=np.zeros((1, 1), dtype=int), coords=(0, 0), groups={"dp": None, "h": None},
+                   backend="gloo", device=torch.device("cpu"), ranks_per_host=1)
+
+
 GRAPHED = {
     # name -> (make(problem, graphs), is it graphed)
     "make_sqp_solver": (lambda pb, graphs: make_sqp_solver(
@@ -430,6 +437,10 @@ GRAPHED = {
         lambda made: made.graph is not None),
     "PlantStep": (_plant_step, lambda made: made is not None),
     "run_dummy_sim": (_dummy_sim, lambda made: made is not None),
+    "make_sharded_sqp_solver": (lambda pb, graphs: make_sharded_sqp_solver(
+        pb.ocp, pb.model.flow_map, pb.bp, SqpSolverConfig(n_nodes=3, dt=pb.cfg.sqp.dt),
+        _one_rank_mesh(), device="cpu", graphs=graphs),
+        lambda made: isinstance(made, GraphedShardedSolve)),
 }
 
 
@@ -454,6 +465,7 @@ GRAPHED_DEFAULTS = {
     "CentroidalMrtController": (CentroidalMrtController, "cuda", None),
     "run_dummy_sim": (sim_dummy.run_dummy_sim, None, None),
     "make_batched_solver": (make_batched_solver, "cuda", "absent"),
+    "make_sharded_sqp_solver": (make_sharded_sqp_solver, "cuda", None),
 }
 
 

@@ -9,6 +9,10 @@ x0 + 0.003 N(0, 1), 2 SQP iterations, f64:
   `make_sharded_sqp_solver` on a 1 x 2 mesh of virtual CPU devices within
   1e-8 max(1, max|ref|), the same steps, and against the port's
   `make_batched_solver` at JAX's tolerance (tests/test_sharded_sqp.py);
+- its graphed runner (`GraphedShardedSolve`, capture off: the pieces and
+  static buffers of the CUDA graphs, run eagerly) against the same JAX
+  solve, in the same spawn (tests/test_torch_graphed_sharded.py holds it
+  against the eager twin bit for bit);
 - `shard_batched_solver` at 2 dp-ranks against JAX's `shard_batched_solver`
   on a mesh of 2 virtual CPU devices within 1e-8 max(1, max|ref|), the same
   steps, and against the port's `make_batched_solver`;
@@ -48,14 +52,22 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def world2():
-    """Each rank's (sharded 1x2, shard_batched 2x1, throughput 2x1) results."""
+    """Each rank's (sharded 1x2, shard_batched 2x1, throughput 2x1, graphed
+    sharded 1x2) results."""
+    case = sharded_case(1, 2)
     return run_ranks(dryrun.run_cases, 2, "gloo", "cpu", [
-        (dryrun.sharded_sqp_case, sharded_case(1, 2)),
+        (dryrun.sharded_sqp_case, case),
         (dryrun.shard_batched_case, dict(robot="toy_biped", n_nodes=SHARDED_N, batch=SHARDED_B,
                                          n_dp=2, backend="gloo", device="cpu",
                                          dtype="float64", iterations=SHARDED_ITERS)),
         (dryrun.throughput_case, dict(batch=2, n_nodes=3, n_dp=2, backend="gloo",
-                                      device="cpu"))], timeout_s=SHARDED_TIMEOUT_S)
+                                      device="cpu")),
+        (dryrun.sharded_graphs_case, dict({k: case[k] for k in GRAPHS_CASE_KEYS},
+                                          capture=False))], timeout_s=SHARDED_TIMEOUT_S)
+
+
+GRAPHS_CASE_KEYS = ("robot", "n_nodes", "batch", "n_dp", "n_h", "backend", "device", "dtype",
+                    "iterations")
 
 
 @pytest.fixture(scope="module")
@@ -63,8 +75,21 @@ def batched():
     return port_batched_walk()
 
 
-def test_sharded_1x2_matches_jax_and_the_batched_solve(world2, batched):
-    check_sharded_runs([r[0] for r in world2], 1, 2, jax_sharded(1, 2), batched)
+@pytest.fixture(scope="module")
+def jax_1x2():
+    return jax_sharded(1, 2)
+
+
+def test_sharded_1x2_matches_jax_and_the_batched_solve(world2, batched, jax_1x2):
+    check_sharded_runs([r[0] for r in world2], 1, 2, jax_1x2, batched)
+
+
+def test_graphed_sharded_1x2_matches_jax(world2, jax_1x2):
+    """The graphed runner's first call (t0 = 0, the walk's x0s) on every rank."""
+    for r in world2:
+        assert_fields_close(r[3]["graphed"][0], jax_1x2,
+                            ("xs", "us", "lam", "cost", "g_norm", "defect_norm"), SHARDED_TOL,
+                            f"graphed sharded solve rank {r[3]['coords']} vs JAX's")
 
 
 def test_shard_batched_matches_jax(world2):

@@ -14,9 +14,10 @@ It also keeps the launch counts. Each kernel wrapper module registers itself
 its kernel's launches since its last reset (read by chip_smoke.py and the
 tests), and RECORDED, the launches recorded into CUDA graphs. A wrapper
 counts where it launches, through `count_launch`; under graph capture that
-counts in RECORDED, and `solver/graphs.py` adds what a graph recorded
+counts in RECORDED, and `utils/graphs.py` adds what a graph recorded
 (`recorded()` before and after its capture) to LAUNCHES at each replay
-(`add_replayed`).
+(`add_replayed`). The collectives of `parallel/collectives.py` count the
+same way, each kind under a name of its own.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from types import ModuleType
 
 import torch
 
@@ -43,7 +43,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _lock = threading.Lock()
 _state: dict = {}
-COUNTERS: dict[str, ModuleType] = {}   # module name -> a registered kernel wrapper module
+COUNTERS: dict = {}   # name -> a registered kernel wrapper module (or counter)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -152,10 +152,10 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
                            f"({lib.wbmpc_error_string(code).decode()})")
 
 
-def register_counter(module_name: str) -> None:
+def register_counter(module_name: str, holder=None) -> None:
     """Give the kernel wrapper module `module_name` (being imported) its
-    LAUNCHES and RECORDED counts."""
-    module = sys.modules[module_name]
+    LAUNCHES and RECORDED counts; or `holder`, any object, under that name."""
+    module = sys.modules[module_name] if holder is None else holder
     module.LAUNCHES = module.RECORDED = 0
     COUNTERS[module_name] = module
 
@@ -164,12 +164,13 @@ def reset_launches(module_name: str) -> None:
     COUNTERS[module_name].LAUNCHES = 0
 
 
-def count_launch(module_name: str) -> None:
-    """Count one launch of a registered wrapper's kernel: in RECORDED while
-    the current stream is capturing a CUDA graph (the launch is recorded,
-    not run), else in LAUNCHES."""
+def count_launch(module_name: str, on_cuda: bool = True) -> None:
+    """Count one launch of a registered wrapper's kernel (or one collective,
+    `on_cuda` when on CUDA tensors): in RECORDED while the current stream is
+    capturing a CUDA graph (the launch is recorded, not run), else in
+    LAUNCHES."""
     module = COUNTERS[module_name]
-    if torch.cuda.is_current_stream_capturing():
+    if on_cuda and torch.cuda.is_current_stream_capturing():
         module.RECORDED += 1
     else:
         module.LAUNCHES += 1

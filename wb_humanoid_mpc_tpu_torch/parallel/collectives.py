@@ -5,9 +5,9 @@ inside `shard_map` (`parallel/horizon.py`, `solver/sharded_sqp.py`). A mesh
 axis of JAX is a process group here (`parallel/multihost.py::MpcMesh`); each
 function is called by every rank of the group, in the same order.
 
-- `all_gather`: `jax.lax.all_gather(x, axis, axis=0, tiled=True)`, in the
-  list form of `dist.all_gather`, which the `gloo` and `nccl` backends both
-  take for CPU and CUDA tensors;
+- `all_gather`: `jax.lax.all_gather(x, axis, axis=0, tiled=True)`:
+  `all_gather_into_tensor` on `nccl`, and on `gloo` the list form of
+  `dist.all_gather` into views of one tensor;
 - `next_block`: the shift-by-one `ppermute` with perm [(j, j - 1 mod n)],
   i.e. rank i receives rank i + 1's tensor (the last rank rank 0's). `gloo`
   has no send/recv for CUDA tensors, so it is an `all_gather` of which each
@@ -15,21 +15,41 @@ function is called by every rank of the group, in the same order.
 - `psum`, `pmax`: `jax.lax.psum` / `jax.lax.pmax`, an `all_reduce`;
 - `axis_index`, `axis_size`: `jax.lax.axis_index` / `jax.lax.axis_size`.
 
-`COUNTS` counts the calls by kind, so that a caller can report the
-collectives of a solve; `reset_counts` sets them to 0.
+Each collective takes an optional `out`, a tensor of the caller's that
+receives the result (`gathered_like` makes one for a gather; a reduction
+may reduce its input in place): a CUDA graph that reads the result after
+the collective reads a tensor whose address its capture saw
+(`solver/graphs.py::ShardedGraphSet`). Without `out` each allocates its
+result.
+
+`counts()` gives the collectives run by kind, so that a caller can report
+the collectives of a solve; `reset_counts` sets them to 0. They count
+through `ops/_lib.py`'s launch registry: a collective recorded into a CUDA
+graph counts at each replay of that graph.
 """
 
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_gather": 0, "all_reduce": 0}
+from wb_humanoid_mpc_tpu_torch.ops import _lib
+
+KINDS = ("all_gather", "all_reduce")
+for _kind in KINDS:
+    _lib.register_counter(f"{__name__}.{_kind}", types.SimpleNamespace())
+
+
+def counts() -> dict[str, int]:
+    """{kind: collectives run since the last reset}."""
+    return {k: _lib.COUNTERS[f"{__name__}.{k}"].LAUNCHES for k in KINDS}
 
 
 def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
+    for k in KINDS:
+        _lib.reset_launches(f"{__name__}.{k}")
 
 
 def axis_index(group) -> int:
@@ -41,36 +61,51 @@ def axis_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+def gathered_like(t: torch.Tensor, group) -> torch.Tensor:
+    """An empty [size * n, ...] tensor for `all_gather(t, group, out)`."""
+    return t.new_empty((axis_size(group) * t.shape[0], *t.shape[1:]))
+
+
+def all_gather(t: torch.Tensor, group, out: torch.Tensor | None = None) -> torch.Tensor:
     """[n, ...] -> [size * n, ...]: every rank's tensor, in rank order along
-    the group, concatenated on dim 0."""
+    the group, concatenated on dim 0 (into `out` when given)."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(axis_size(group))]
-    COUNTS["all_gather"] += 1
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=0)
+    if out is None:
+        out = gathered_like(t, group)
+    _lib.count_launch(f"{__name__}.all_gather", t.is_cuda)
+    if dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(out, t, group=group)
+    else:
+        dist.all_gather(list(out.chunk(axis_size(group))), t, group=group)
+    return out
 
 
-def next_block(t: torch.Tensor, group) -> torch.Tensor:
-    """The tensor of the next rank along the group (rank 0's on the last)."""
-    n = axis_size(group)
-    parts = all_gather(t[None], group)
-    return parts[(axis_index(group) + 1) % n]
+def next_block(t: torch.Tensor, group, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The tensor of the next rank along the group (rank 0's on the last):
+    a view of the gather of every rank's (into `out`, [size, *t.shape], when
+    given)."""
+    parts = all_gather(t[None], group, out)
+    return parts[(axis_index(group) + 1) % axis_size(group)]
 
 
-def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
-    out = t.clone().contiguous()
-    COUNTS["all_reduce"] += 1
+def _all_reduce(t: torch.Tensor, op, group, out) -> torch.Tensor:
+    if out is None:
+        out = t.clone(memory_format=torch.contiguous_format)
+    elif out is not t:
+        out.copy_(t)
+    _lib.count_launch(f"{__name__}.all_reduce", out.is_cuda)
     dist.all_reduce(out, op=op, group=group)
     return out
 
 
-def psum(t: torch.Tensor, group) -> torch.Tensor:
-    return _all_reduce(t, dist.ReduceOp.SUM, group)
+def psum(t: torch.Tensor, group, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The sum over the group (into `out`, which may be `t` itself)."""
+    return _all_reduce(t, dist.ReduceOp.SUM, group, out)
 
 
-def pmax(t: torch.Tensor, group) -> torch.Tensor:
-    return _all_reduce(t, dist.ReduceOp.MAX, group)
+def pmax(t: torch.Tensor, group, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The maximum over the group (into `out`, which may be `t` itself)."""
+    return _all_reduce(t, dist.ReduceOp.MAX, group, out)
 
 
 def pack(tensors, lead: int) -> tuple[torch.Tensor, list]:

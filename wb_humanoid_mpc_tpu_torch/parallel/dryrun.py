@@ -3,14 +3,18 @@
 `run_ranks` starts every rank with `spawn`, which imports the module of the
 function the rank runs, and a rank must import neither JAX nor the JAX
 package. So the bodies that `chip_smoke.py`'s `sharded` phase and the CPU
-tests (tests/test_torch_{horizon,multihost,sharded_sqp}.py) run on every
-rank live here, in the port:
+tests (tests/test_torch_{horizon,multihost,sharded_sqp,graphed_sharded}.py)
+run on every rank live here, in the port:
 
 - `run_cases` runs a list of cases in order on one rank, so that every case
   of one world size shares one spawn;
 - `sharded_sqp_case` is the port's `dryrun_multichip`
   (`__graft_entry__.py`): the walking problem, batch x horizon sharded,
-  through `make_sharded_sqp_solver`;
+  through `make_sharded_sqp_solver` (CUDA graphs on the card), optionally
+  against its eager twin and timed against it in turns;
+- `sharded_graphs_case` holds the graphed sharded solve's runner
+  (`GraphedShardedSolve`) against the eager twin over two calls of
+  different t0 and x0s;
 - `shard_batched_case`, `throughput_case`, `horizon_case`,
   `collectives_case` and `submesh_case` drive `shard_batched_solver`, the
   mesh point of `batched_throughput`, `horizon_sharded_lq_solve`, the mesh's
@@ -34,7 +38,8 @@ from wb_humanoid_mpc_tpu_torch.parallel.batched import shard_batched_solver
 from wb_humanoid_mpc_tpu_torch.parallel.horizon import horizon_sharded_lq_solve
 from wb_humanoid_mpc_tpu_torch.parallel.multihost import make_mpc_mesh, mesh_report
 from wb_humanoid_mpc_tpu_torch.parallel.scaling import batched_inputs, batched_throughput
-from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import make_sharded_sqp_solver
+from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedShardedSolve
+from wb_humanoid_mpc_tpu_torch.solver.sharded_sqp import ShardedSqp, make_sharded_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, model_flow_batch
 from wb_humanoid_mpc_tpu_torch.solver.transcription import LQApprox
 
@@ -67,28 +72,42 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _row_counter(base):
+    """(flow_batch, calls): `base` counting its calls by rows in `calls`
+    ({rows: a 0-d count on the device}): the count is an add on the device
+    where the call runs, so a CUDA graph that holds the call counts it at
+    every replay."""
+    calls: dict = {}
+
+    def flow_batch(ts, xs, us):
+        if xs.shape[0] not in calls:   # first seen in an eager run (a graph's warm-up)
+            calls[xs.shape[0]] = torch.zeros((), dtype=torch.int64, device=xs.device)
+        calls[xs.shape[0]].add_(1)
+        return base(ts, xs, us)
+
+    return flow_batch, calls
+
+
 def sharded_sqp_case(robot: str, n_nodes: int, batch: int, n_dp: int, n_h: int, backend: str,
-                     device: str, dtype: str, iterations: int = 2, timed_solves: int = 0,
-                     seed: int = 0, flow_backend: str = "auto") -> dict:
+                     device: str, dtype: str, iterations: int = 2, timed_pairs: int = 0,
+                     seed: int = 0, flow_backend: str = "auto", twin: bool = False) -> dict:
     """One sharded solve of the walking problem on an n_dp x n_h mesh
-    (sensitivity "node"; `flow_backend` "plain" for K2's plain twin), with
-    the K2 launches, the `flow_batch` calls by rows and the collectives of
-    that solve counted on this rank (set to 0 just before it, read just
-    after); then `timed_solves` more solves from
-    the same inputs, all ranks started together, for the wall time of an
-    SQP iteration."""
+    (sensitivity "node"; `flow_backend` "plain" for K2's plain twin;
+    `make_sharded_sqp_solver`'s default: CUDA graphs on the card), with the
+    K2 launches, the `flow_batch` calls by rows and the
+    collectives of that solve counted on this rank (set to 0 just before it,
+    read just after; replays included). With `twin`, the same solve by the
+    eager twin (`graphs=False`), and its solution under "eager"; with
+    `timed_pairs`, that many pairs of one solve each, the graphed one and
+    its eager twin in turns (the graphed first in even pairs), all ranks
+    started together before each, for the wall ms of an SQP iteration on
+    this rank."""
     mesh = make_mpc_mesh(n_dp, n_h, backend=backend, device=device)
     pb, x0s, traj, params, lam = walking_problem(robot, n_nodes, batch, device=device,
                                                  dtype=getattr(torch, dtype), seed=seed)
     cfg = SqpSolverConfig(n_nodes=n_nodes, dt=pb.cfg.sqp.dt, sqp_iterations=iterations,
                           sensitivity="node", flow_backend=flow_backend)
-    base = model_flow_batch(pb.ocp, cfg)
-    calls: dict = {}
-
-    def flow_batch(ts, xs, us):
-        calls[xs.shape[0]] = calls.get(xs.shape[0], 0) + 1
-        return base(ts, xs, us)
-
+    flow_batch, calls = _row_counter(model_flow_batch(pb.ocp, cfg))
     solve = make_sharded_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, mesh,
                                     device=device, flow_batch=flow_batch)
     dev = mesh.device
@@ -99,16 +118,73 @@ def sharded_sqp_case(robot: str, n_nodes: int, batch: int, n_dp: int, n_h: int, 
     _sync(dev)
     first_s = time.perf_counter() - t0
     out = _numpy(sol)
-    out.update(k2_launches=fkvel.LAUNCHES, flow_batch_calls=dict(calls),
-               collectives=dict(collectives.COUNTS), first_s=first_s, coords=mesh.coords,
-               report=mesh_report(mesh), iterations=iterations, ms_per_iteration=None)
-    if timed_solves:
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(timed_solves):
-            solve(0.0, x0s, traj, params, lam)
-        _sync(dev)
-        out["ms_per_iteration"] = (time.perf_counter() - t0) * 1e3 / (timed_solves * iterations)
+    out.update(k2_launches=fkvel.LAUNCHES,
+               flow_batch_calls={rows: int(n) for rows, n in calls.items()},
+               collectives=collectives.counts(), first_s=first_s, coords=mesh.coords,
+               report=mesh_report(mesh), iterations=iterations, graphed=None,
+               ms_per_iteration=None, eager=None)
+    if isinstance(solve, GraphedShardedSolve):
+        (gs,) = solve.sets.values()
+        out["graphed"] = gs.report()
+    eager = (make_sharded_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, mesh,
+                                     device=device, graphs=False)
+             if twin or timed_pairs else None)
+    if twin:
+        out["eager"] = _numpy(eager(0.0, x0s, traj, params, lam))
+    if timed_pairs:
+        sides = {"graphed": solve, "eager": eager}
+        ms = {side: [] for side in sides}
+        for i in range(timed_pairs):
+            for side in (("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")):
+                dist.barrier()
+                _sync(dev)
+                t0 = time.perf_counter()
+                sides[side](0.0, x0s, traj, params, lam)
+                _sync(dev)
+                ms[side].append((time.perf_counter() - t0) * 1e3 / iterations)
+        out["ms_per_iteration"] = ms
+    return out
+
+
+def sharded_graphs_case(robot: str, n_nodes: int, batch: int, n_dp: int, n_h: int,
+                        backend: str, device: str, dtype: str, iterations: int = 2,
+                        capture: bool | None = None, split: bool | None = None,
+                        ocp_cls=None) -> dict:
+    """The graphed sharded solve's runner against its eager twin on an
+    n_dp x n_h mesh, over two calls: (t0 = 0, x0s) from the warm start, then
+    (t0 = 0.35, x0s + SPREAD N(0, 1) of seed 1) from the first call's eager
+    solution. The runner is `GraphedShardedSolve` with `capture` (None: on
+    a CUDA device) and `split` (None: by the backend); `ocp_cls(model, cfg)`
+    replaces the problem's OCP (a variant whose residuals read t, so that a
+    time baked into a graph shows). Returns each call's solutions ("eager",
+    "graphed"), the collectives and K2 launches of each graphed call, and
+    the graph set's report."""
+    mesh = make_mpc_mesh(n_dp, n_h, backend=backend, device=device)
+    dt = getattr(torch, dtype)
+    pb, x0s, traj, params, lam = walking_problem(robot, n_nodes, batch, device=device,
+                                                 dtype=dt)
+    ocp = pb.ocp if ocp_cls is None else ocp_cls(model=pb.model, cfg=pb.cfg)
+    cfg = SqpSolverConfig(n_nodes=n_nodes, dt=pb.cfg.sqp.dt, sqp_iterations=iterations,
+                          sensitivity="node")
+    sqp = ShardedSqp(ocp, pb.model.flow_map, pb.bp, cfg, mesh, "dp", "h", mesh.device, None)
+    graphed = GraphedShardedSolve(sqp, capture=mesh.device.type == "cuda" if capture is None
+                                  else capture, split=split)
+    noise = np.random.default_rng(1).standard_normal(tuple(x0s.shape)) * SPREAD
+    out = {"eager": [], "graphed": [], "collectives": [], "k2_launches": [],
+           "coords": mesh.coords}
+    for t0, x0 in ((0.0, x0s), (0.35, x0s + torch.as_tensor(noise, dtype=dt, device=mesh.device))):
+        ref = sqp.solve(t0, x0, traj, params, lam)
+        fkvel.reset_launches()
+        collectives.reset_counts()
+        got = graphed(t0, x0, traj, params, lam)
+        _sync(mesh.device)
+        out["collectives"].append(collectives.counts())
+        out["k2_launches"].append(fkvel.LAUNCHES)
+        out["eager"].append(_numpy(ref))
+        out["graphed"].append(_numpy(got))
+        traj = ref.traj
+    (gs,) = graphed.sets.values()
+    out["report"] = gs.report()
     return out
 
 

@@ -17,9 +17,12 @@ the element after each block (`parallel/collectives.py`). The five fields
 of an element travel packed in one tensor.
 
 The block functions take the node axis first, as `priccati._scan` does, and
-any batch of instances behind it; they are the building blocks of the 2-D
-sharded SQP (`solver/sharded_sqp.py`). `horizon_sharded_lq_solve` wraps them
-for one LQ problem. Results match the sequential `solver/riccati.py` passes
+any batch of instances behind it. Each is its local parts (`value_scan`,
+`value_functions`, `next_values`, `feedback_gains`, `rollout_scan`,
+`rollout_prefix`) with the collectives between them; the 2-D sharded SQP
+(`solver/sharded_sqp.py`) calls the parts itself, so that its CUDA graphs
+can cut at every collective. `horizon_sharded_lq_solve` wraps the block
+functions for one LQ problem. Results match the sequential `solver/riccati.py` passes
 to float tolerance (tests/test_torch_horizon.py).
 """
 
@@ -69,22 +72,38 @@ def _affine_combine(a: _Affine, b: _Affine) -> _Affine:
     return _affine(b, a)
 
 
+def rows_out(elem, rows: slice) -> torch.Tensor:
+    """Each field's `rows`, packed into one tensor [n, total]: what a block
+    sends to the gather of the per-block summaries."""
+    return pack([a[rows] for a in elem], 1)[0]
+
+
+def rows_in(gathered: torch.Tensor, like):
+    """The gathered rows, unpacked into fields shaped like `like`'s."""
+    return type(like)(*unpack(gathered, [a.shape[1:] for a in like], 1))
+
+
 def _gather_rows(elem, rows: slice, group):
     """Every rank's `rows` of each field, gathered along dim 0 (one collective)."""
-    flat, tails = pack([a[rows] for a in elem], 1)
-    return type(elem)(*unpack(all_gather(flat, group), tails, 1))
+    return rows_in(all_gather(rows_out(elem, rows), group), elem)
 
 
-def block_value_functions(elems_loc: _Elem, group):
-    """Distributed reversed scan: local elements [K, ...] -> (P, p) [K, ...]
-    plus (P_next, p_next) of element k+1 (the next block's first row for the
-    last local one)."""
-    nx = elems_loc.A.shape[-1]
-    lead = elems_loc.A.shape[1:-2]
-    i_dev = axis_index(group)
+# The block passes below are the local parts of the distributed scans and
+# the collectives between them. The sharded SQP (`solver/sharded_sqp.py`)
+# calls the parts itself, so that its CUDA graphs can cut at each collective.
 
-    loc = _scan(_combine, elems_loc, reverse=True)
-    sums = _gather_rows(loc, slice(0, 1), group)               # [n_dev, ...]
+def value_scan(elems_loc: _Elem) -> _Elem:
+    """The local reversed scan of the block's elements [K, ...]; its first
+    row combines the whole block (`rows_out(loc, slice(0, 1))` is what the
+    block sends)."""
+    return _scan(_combine, elems_loc, reverse=True)
+
+
+def value_functions(loc: _Elem, sums: _Elem, i_dev: int):
+    """(P, p) [K, ...] of the block's elements, from the local scan and
+    every block's summary element (`sums`, [n_dev, ...] fields, gathered)."""
+    nx = loc.A.shape[-1]
+    lead = loc.A.shape[1:-2]
     # T_i = combine(blocks i..P-1); suffix S_i = T_{i+1} (identity for the last)
     T = _scan(_combine, sums, reverse=True)
     T_pad = _Elem(*(torch.cat([a, i]) for a, i in
@@ -93,21 +112,39 @@ def block_value_functions(elems_loc: _Elem, group):
     comb = _combine(suffix, loc)
     P_loc = 0.5 * (comb.J + comb.J.transpose(-1, -2))               # [K, ..., nx, nx]
     p_loc = -comb.eta                                                # [K, ..., nx]
+    return P_loc, p_loc
 
-    # (P, p) of element k+1: shift by one, the last row from the next block
-    first, tails = pack([P_loc[0], p_loc[0]], len(lead))
-    P_first, p_first = unpack(next_block(first, group), tails, len(lead))
-    P_next = torch.cat([P_loc[1:], P_first[None]])
-    p_next = torch.cat([p_loc[1:], p_first[None]])
+
+def first_values(P_loc, p_loc) -> torch.Tensor:
+    """(P, p) of the block's first element, packed: what the previous block
+    needs for its last."""
+    return pack([P_loc[0], p_loc[0]], P_loc.dim() - 3)[0]
+
+
+def next_values(P_loc, p_loc, first_next):
+    """(P, p) of element k+1: shift by one, the last row from the next
+    block's `first_values` (`first_next`)."""
+    P_first, p_first = unpack(first_next, [P_loc.shape[-2:], p_loc.shape[-1:]],
+                              P_loc.dim() - 3)
+    return torch.cat([P_loc[1:], P_first[None]]), torch.cat([p_loc[1:], p_first[None]])
+
+
+def block_value_functions(elems_loc: _Elem, group):
+    """Distributed reversed scan: local elements [K, ...] -> (P, p) [K, ...]
+    plus (P_next, p_next) of element k+1 (the next block's first row for the
+    last local one)."""
+    loc = value_scan(elems_loc)
+    P_loc, p_loc = value_functions(loc, _gather_rows(loc, slice(0, 1), group),
+                                   axis_index(group))
+    P_next, p_next = next_values(P_loc, p_loc, next_block(first_values(P_loc, p_loc), group))
     return P_loc, p_loc, P_next, p_next
 
 
-def block_backward_gains(elems_loc: _Elem, A, B, d, Qxx, Quu, Qux, qx, qu, group, reg: float):
-    """Distributed backward pass: the feedback gains (K, k_ff) of the local
-    nodes. Stage arrays are the block's [K, ...] rows."""
+def feedback_gains(Pn, pn, A, B, d, Quu, Qux, qu, reg: float):
+    """The feedback gains (K, k_ff) of the local nodes, from the value
+    function of the node after each (Pn, pn)."""
     nu = B.shape[-1]
     eyeu = torch.eye(nu, dtype=B.dtype, device=B.device)
-    _, _, Pn, pn = block_value_functions(elems_loc, group)
     Bt = B.transpose(-1, -2)
     Quu_h = Quu + Bt @ Pn @ B
     scale = torch.clamp(torch.amax(torch.diagonal(Quu_h, dim1=-2, dim2=-1), dim=-1), min=1.0)
@@ -120,24 +157,43 @@ def block_backward_gains(elems_loc: _Elem, A, B, d, Qxx, Quu, Qux, qx, qu, group
     return Kg, kg
 
 
-def block_forward_rollout(F, f, dx0, group):
-    """Distributed affine prefix scan: local links (F, f) [K, ..., nx(, nx)]
-    and the replicated dx0 [..., nx] -> (dx at each local node, dx at the
-    node after each): dx_k for the block's global node indices."""
-    nx = F.shape[-1]
-    lead = F.shape[1:-2]
-    i_dev = axis_index(group)
+def block_backward_gains(elems_loc: _Elem, A, B, d, Qxx, Quu, Qux, qx, qu, group, reg: float):
+    """Distributed backward pass: the feedback gains (K, k_ff) of the local
+    nodes. Stage arrays are the block's [K, ...] rows."""
+    _, _, Pn, pn = block_value_functions(elems_loc, group)
+    return feedback_gains(Pn, pn, A, B, d, Quu, Qux, qu, reg)
 
-    locF = _scan(_affine, _Affine(F, f), reverse=False)
-    sumsF = _gather_rows(locF, slice(-1, None), group)
+
+def rollout_scan(F, f) -> _Affine:
+    """The local prefix scan of the block's links (F, f) [K, ..., nx(, nx)];
+    its last row composes the whole block (`rows_out(loc, slice(-1, None))`
+    is what the block sends)."""
+    return _scan(_affine, _Affine(F, f), reverse=False)
+
+
+def rollout_prefix(locF: _Affine, sumsF: _Affine, i_dev: int, dx0):
+    """(dx at each local node, dx at the node after each), from the local
+    scan, every block's summary link (`sumsF`, gathered) and the replicated
+    dx0 [..., nx]."""
+    nx = locF.F.shape[-1]
+    lead = locF.F.shape[1:-2]
     Tf = _scan(_affine, sumsF, reverse=False)
-    eyeI = _affine_identity(nx, (1, *lead), F.dtype, F.device)
+    eyeI = _affine_identity(nx, (1, *lead), locF.F.dtype, locF.F.device)
     Tf_pad = _Affine(*(torch.cat([i, a]) for i, a in zip(eyeI, Tf)))
     prefix = _Affine(*(a[i_dev][None] for a in Tf_pad))   # all blocks before mine
     Fg, fg = _affine_combine(prefix, locF)
     dx_next = _mv(Fg, dx0) + fg                            # dx_{k+1} per local row
     dx_first = _mv(prefix.F, dx0) + prefix.f               # dx at the block's start
     return torch.cat([dx_first, dx_next[:-1]]), dx_next
+
+
+def block_forward_rollout(F, f, dx0, group):
+    """Distributed affine prefix scan: local links (F, f) [K, ..., nx(, nx)]
+    and the replicated dx0 [..., nx] -> (dx at each local node, dx at the
+    node after each): dx_k for the block's global node indices."""
+    locF = rollout_scan(F, f)
+    return rollout_prefix(locF, _gather_rows(locF, slice(-1, None), group), axis_index(group),
+                          dx0)
 
 
 def horizon_sharded_lq_solve(lq, dx0, mesh, axis: str = "h", reg: float = 1e-8, *,

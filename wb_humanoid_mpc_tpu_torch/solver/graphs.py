@@ -43,6 +43,14 @@ The staged solver (`make_staged_sqp_solver`) is captured the same way,
 one graph a phase (`StagedGraphSet`: lq, projection, riccati, linesearch),
 so that each phase is timed apart, as JAX jits each phase.
 
+The 2-D sharded solve (`make_sharded_sqp_solver`, `GraphedShardedSolve`)
+is captured the same way, as JAX jits it (`shard_map` inside `jax.jit`):
+its iteration once, replayed for each SQP iteration, and its final gathers
+once. Its collectives decide the cut (`ShardedGraphSet`): on `gloo`, one
+graph for each part between two collectives, the collectives run between
+the replays on static buffers; on `nccl`, one graph an iteration and one
+for the gathers, the collectives inside them.
+
 With `capture=False` the same pieces run on the same buffers, eagerly and in
 the same order: the CPU tests hold that runner against the eager solve.
 """
@@ -50,6 +58,7 @@ the same order: the CPU tests hold that runner against the eager solve.
 from __future__ import annotations
 
 import copy
+import functools
 import time
 
 import torch
@@ -299,3 +308,158 @@ class GraphedStagedSolve(GraphedSqpSolve):
         s = self._loaded(t0, x0, init_traj, params, lam)
         spent = s.run(self.iterations)
         return s.solution(self.iterations), PhaseTimings(**spent)
+
+
+class _ProgramGraphs(PieceGraphs):
+    """One program of the sharded solve (`ShardedSqp.iteration` or `.final`:
+    parts with collectives between them) on the state dict `s`, whose
+    inputs are static buffers. Each part copies what it sends into a
+    static buffer of its own, and each collective writes a static buffer
+    that the next part reads (a reduction its input, in place), so every
+    address a graph reads was fixed before its capture. With `split`, each
+    part is a piece and each collective an eager piece between their
+    replays (`gloo`, which stages CUDA tensors through the host, a round
+    trip a capture refuses); without, the whole program is one piece, its
+    collectives captured inside it (`nccl`). `carry` runs at the end of the
+    last part."""
+
+    def __init__(self, sqp, program, s: dict, capture: bool, split: bool, what: str,
+                 carry=None):
+        super().__init__(sqp.device, capture)
+        self.sqp, self.s, self.what = sqp, s, what
+        self.send: dict[str, torch.Tensor] = {}
+        self.recv: dict[str, torch.Tensor] = {}
+        steps = []
+        for i, (part, exchanges) in enumerate(program):
+            last = carry if i == len(program) - 1 else None
+            steps.append(Piece(part.__name__.lstrip("_"),
+                               functools.partial(self._part, part, exchanges, last)))
+            steps += [Piece(f"{ex.op} {ex.key}", functools.partial(self._exchange, ex),
+                            eager=split) for ex in exchanges]
+        self.segments = sum(not p.eager for p in steps) if split else 1
+        self.pieces = steps if split else [Piece("program", functools.partial(_run_all, steps))]
+
+    def _part(self, part, exchanges, carry) -> None:
+        sends = part(self.s)
+        for ex in exchanges:
+            t = sends[ex.key]
+            if ex.key not in self.send:   # the first (eager) run allocates
+                self.send[ex.key] = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            self.send[ex.key].copy_(t)
+        if carry is not None:
+            carry()
+
+    def _exchange(self, ex) -> None:
+        t = self.send[ex.key]
+        if ex.key not in self.recv:
+            self.recv[ex.key] = self.sqp.exchange_out(ex, t)
+        self.s[ex.key] = self.sqp.exchange(ex, t, self.recv[ex.key])
+
+
+def _run_all(pieces) -> None:
+    for piece in pieces:
+        piece.run()
+
+
+class ShardedGraphSet:
+    """Static buffers and the two programs of the sharded solve for one
+    (dtype, global batch): the rank's inputs (t0 0-d, x0, xs, us, params,
+    lam), the iteration's stats, the iteration (captured once and replayed
+    for each SQP iteration, the counterpart of JAX's `lax.scan` over
+    iterations: its last part writes the new xs, us and stats into the
+    buffers) and the final gathers (which read those buffers; their result,
+    `full`, is what the solution is read from)."""
+
+    def __init__(self, sqp, t0_dtype, inputs: dict, capture: bool, split: bool):
+        dev = sqp.device
+        s = {k: torch.empty_like(v) for k, v in inputs.items() if k != "params"}
+        s["params"] = type(inputs["params"])(*(torch.empty_like(a) for a in inputs["params"]))
+        s["t0"] = torch.zeros((), dtype=t0_dtype, device=dev)
+        s["alphas"] = sqp.alphas[t0_dtype]
+        self.s = s
+        self.stats = tuple(torch.empty(s["x0"].shape[0], dtype=t0_dtype, device=dev)
+                           for _ in range(4))
+        self.tails = [s["xs"].shape[2:], s["us"].shape[2:]]
+        self.iteration = _ProgramGraphs(sqp, sqp.iteration, s, capture, split,
+                                        "the sharded SQP iteration", carry=self._carry)
+        self.final = _ProgramGraphs(sqp, sqp.final, {"xs": s["xs"], "us": s["us"],
+                                                     "stats": self.stats},
+                                    capture, split, "the sharded solve's gathers")
+
+    def _carry(self) -> None:
+        s = self.s
+        s["xs"].copy_(s["next_xs"])
+        s["us"].copy_(s["next_us"])
+        for buf, value in zip(self.stats, s["stats"]):
+            buf.copy_(value)
+
+    def load(self, t0, inputs: dict) -> None:
+        s = self.s
+        pairs = [(k, s[k], inputs[k]) for k in ("x0", "xs", "us", "lam")]
+        pairs += [(f"params.{f}", b, a) for f, b, a in
+                  zip(s["params"]._fields, s["params"], inputs["params"])]
+        for name, buf, src in pairs:
+            if src.shape != buf.shape or src.dtype != buf.dtype:
+                raise ValueError(f"graphed sharded solve built for {name} {tuple(buf.shape)} "
+                                 f"{buf.dtype}, got {tuple(src.shape)} {src.dtype}")
+        s["t0"].fill_(t0)
+        for _, buf, src in pairs:
+            buf.copy_(src)
+
+    def run(self, iterations: int) -> None:
+        """`iterations` SQP iterations, then the gathers. The first call of
+        each program is its warm-up (the first iteration; the gathers), then
+        its capture."""
+        it, final = self.iteration, self.final
+        todo = iterations
+        if it.capture and not it.graphs:
+            it._first_run()
+            todo -= 1
+        for _ in range(todo):
+            for piece in it.pieces:
+                it._play(piece)
+        if final.capture and not final.graphs:
+            final._first_run()
+        else:
+            for piece in final.pieces:
+                final._play(piece)
+
+    def report(self) -> dict:
+        """Graphs, segments, warm-up and capture seconds, capture memory of
+        both programs."""
+        progs = (self.iteration, self.final)
+        return dict(graphs=sum(len(p.graphs) for p in progs),
+                    segments={p.what: p.segments for p in progs},
+                    eager_collectives=sum(q.eager for p in progs for q in p.pieces),
+                    warmup_s=sum(p.warmup_s or 0.0 for p in progs),
+                    capture_s=sum(p.capture_s or 0.0 for p in progs),
+                    pool_bytes=sum(p.pool_bytes or 0 for p in progs))
+
+
+class GraphedShardedSolve:
+    """solve(t0, x0s, init_traj, params, lam) -> SqpSolution of the sharded
+    solve over CUDA graphs (`make_sharded_sqp_solver`'s default on the
+    card), one `ShardedGraphSet` per (dtype, global batch). `split` (the
+    graphs cut at every collective) follows the mesh's backend: split on
+    `gloo`, collectives inside the graphs on `nccl`. `capture=False` runs
+    the same pieces on the same buffers eagerly, on any device (the CPU
+    tests)."""
+
+    def __init__(self, sqp, *, capture: bool = True, split: bool | None = None):
+        if capture:
+            require_cuda(sqp.device)
+        self.sqp, self.capture = sqp, capture
+        self.split = sqp.backend != "nccl" if split is None else split
+        self.sets: dict[tuple, ShardedGraphSet] = {}
+
+    def __call__(self, t0, x0s, init_traj: Trajectory, params, lam):
+        B = self.sqp.check(x0s, init_traj)
+        inputs = self.sqp.local_inputs(x0s, init_traj, params, lam)
+        key = (x0s.dtype, B)
+        gs = self.sets.get(key)
+        if gs is None:
+            gs = self.sets[key] = ShardedGraphSet(self.sqp, x0s.dtype, inputs, self.capture,
+                                                  self.split)
+        gs.load(t0, inputs)
+        gs.run(self.sqp.cfg.sqp_iterations)
+        return self.sqp.solution(gs.final.s["full"].clone(), gs.tails, lam)

@@ -12,6 +12,9 @@ into one memory pool of its own and replays it. `GraphedFunction` is the
 one-piece case: a function of fixed-shape tensors, one graph per (dtype,
 shapes) of its arguments (the MRT controllers' feed-forward, the dummy
 plant's RK4 step). `solver/graphs.py` builds the SQP solves on `PieceGraphs`.
+A piece marked `eager` is never captured: it runs at its place in every
+warm-up and every replay of the program (a collective that a capture
+refuses, between the graphs of the pieces around it).
 
 The first run of a program is the warm-up (PyTorch's rule before a
 capture): each piece runs once eagerly on a side stream, which fills the
@@ -54,6 +57,7 @@ class Piece(NamedTuple):
     name: str
     run: Callable[[], None]
     when_needed: bool = False   # replayed only when its program asks (the SQP's lower ladder)
+    eager: bool = False         # never captured: runs eagerly between replays (a `gloo` collective)
 
 
 def require_cuda(device: torch.device) -> None:
@@ -99,7 +103,7 @@ class PieceGraphs:
         self.capture_s = self.warmup_s = self.pool_bytes = None
 
     def _play(self, piece: Piece) -> None:
-        if not self.capture:
+        if not self.capture or piece.eager:
             piece.run()
             return
         self.graphs[piece.name].replay()
@@ -162,7 +166,8 @@ class PieceGraphs:
             pool = torch.cuda.graph_pool_handle()
             stream = self.stream if self.stream is not None else torch.cuda.Stream(self.device)
             for piece in self.pieces:
-                self._capture(piece, pool, stream)
+                if not piece.eager:
+                    self._capture(piece, pool, stream)
         finally:
             if collecting:
                 gc.enable()
