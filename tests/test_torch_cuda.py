@@ -1033,3 +1033,135 @@ def test_controller_capture_failure_raises(card, monkeypatch):
     (entry,) = ctrl.graph.entries.values()
     assert not entry.graphs
     torch.cuda.synchronize()
+
+
+def _spinner(card):
+    """A graphed function whose graph spins one thread of the card for
+    `cycles` clock cycles (its piece, and so its replay spans, named
+    `spinner`) and the input it runs on, captured outside any record."""
+    from wb_humanoid_mpc_tpu_torch.utils.graphs import GraphedFunction
+
+    def fn(x, cycles):
+        torch.cuda._sleep(cycles)
+        return x + 1
+
+    x = torch.zeros(4, device=card)
+    graphs = {}
+
+    def run(cycles: int):
+        if cycles not in graphs:
+            graphs[cycles] = GraphedFunction(lambda a: fn(a, cycles), card, "spinner")
+            graphs[cycles].run(x)
+            torch.cuda.synchronize()
+        graphs[cycles].run(x)
+
+    return run, x
+
+
+def _trace_readback(x):
+    """The end of `MpcRuntime.advance` in small: a `readback` span of two
+    synchronous copies with the record's anchor, the end of its device
+    pair, between them."""
+    from wb_humanoid_mpc_tpu_torch.utils import trace
+
+    with trace.span("readback"):
+        trace.device_start("download")
+        y = x.double().cpu()
+        trace.device_end("download", anchor=True)
+        return y, x.double().cpu()
+
+
+@pytest.mark.parametrize("cycles", [1_000, 1_000_000], ids=["short", "1ms"])
+def test_trace_places_idle_on_the_host_span_that_held_it(card, cycles, monkeypatch):
+    """A replay of a graph (a few microseconds, or about 0.5-1 ms of
+    spinning), a span in which the host waits for it, a 2 ms host sleep in
+    a span, a second replay. The recorder gives the sleeping span, when
+    the card has nothing to do, its whole duration as idle time, within
+    50 us. It places the first replay's start no earlier than 50 us
+    before the host's span that launched it, its end no later than 50 us
+    after the host's return from the wait, and, where the card was still
+    busy when the host began to wait (the long graph, so that the wait
+    returns as the replay ends), within 50 us of that return (the short
+    graph ends before the host begins to wait); five records after one
+    that is not judged (the first after a capture has placed its events
+    up to 60 us late), all printed before any is judged."""
+    import time
+
+    from wb_humanoid_mpc_tpu_torch.utils import trace
+
+    monkeypatch.setattr(trace, "DEVICE_EVERY", 1)
+    run, x = _spinner(card)
+    run(cycles)
+    rows = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        o = trace.begin(card)
+        run(cycles)
+        with trace.span("wait"):
+            torch.cuda.current_stream().synchronize()
+        with trace.span("host_sleep"):
+            time.sleep(0.002)
+        run(cycles)
+        _trace_readback(x)
+        rec = trace.end(o, 0, False)
+        spans = {s.name: s for s in rec.spans if s.name != "spinner"}
+        iv = [i for i in rec.device if i.name == "spinner"]
+        assert len(iv) == 2 and rec.replays == {"spinner": 2}
+        wait, sleep = spans["wait"], spans["host_sleep"]
+        launch = next(s for s in rec.spans if s.name == "spinner")
+        rows.append(((iv[0].end_ns - wait.end_ns) * 1e-3, sleep.seconds,
+                     rec.idle_s["host_sleep"], (iv[0].start_ns - launch.start_ns) * 1e-3))
+        at = rec.advance.start_ns
+
+        def us(rows):
+            return [(r.name, round((r.start_ns - at) * 1e-3, 1), round((r.end_ns - at) * 1e-3, 1))
+                    for r in rows]
+
+        print(f"cycles {cycles}: intervals (us from advance) {us(rec.device)}; "
+              f"spans {us(rec.spans)}")
+    for end_us, sleep_s, idle_s, start_us in rows:
+        print(f"cycles {cycles}: replay placed to end {end_us:+.1f} us from the wait's return, "
+              f"to start {start_us:+.1f} us from its launch's span; "
+              f"sleep span {sleep_s * 1e3:.4f} ms, idle in it {idle_s * 1e3:.4f} ms")
+    for end_us, sleep_s, idle_s, start_us in rows[1:]:
+        assert sleep_s >= 0.002
+        assert end_us <= 50.0 and (cycles < 1_000_000 or end_us >= -50.0)
+        assert start_us >= -50.0
+        assert abs(idle_s - sleep_s) <= 50e-6
+
+
+def test_trace_replay_times_match_replay_events(card, monkeypatch):
+    """Each replay's device time in the record agrees within 2 % with a pair
+    of CUDA events recorded around `CUDAGraph.replay` itself (the
+    benchmark's `ReplayTimer`), over 8 replays of a 0.5-1 ms graph queued
+    behind a spinning kernel, so that both pairs time the card's work and
+    not the host's launches in between."""
+    from wb_humanoid_mpc_tpu_torch.utils import trace
+
+    run, x = _spinner(card)
+    run(1_000_000)
+    pairs = []
+    orig = torch.cuda.CUDAGraph.replay
+
+    def replay(graph):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(graph)
+        b.record()
+        pairs.append((a, b))
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", replay)
+    monkeypatch.setattr(trace, "DEVICE_EVERY", 1)
+    torch.cuda.synchronize()
+    o = trace.begin(card)
+    torch.cuda._sleep(20_000_000)
+    for _ in range(8):
+        run(1_000_000)
+    _trace_readback(x)
+    rec = trace.end(o, 0, False)
+    got = [(i.end_ns - i.start_ns) * 1e-6 for i in rec.device if i.name == "spinner"]
+    ref = [a.elapsed_time(b) for a, b in pairs]
+    print("recorder ms", [f"{v:.4f}" for v in got], "events ms", [f"{v:.4f}" for v in ref])
+    assert len(got) == len(ref) == 8
+    for g, r in zip(got, ref):
+        assert abs(g - r) <= 0.02 * r

@@ -48,6 +48,7 @@ from wb_humanoid_mpc_tpu_torch.refs.targets import CentroidalTargetCalculator, W
 from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solver
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+from wb_humanoid_mpc_tpu_torch.utils import trace
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
 
 ASSETS = Path(__file__).resolve().parent / "assets"
@@ -288,7 +289,9 @@ def build_centroidal_mpc(
     calc = CentroidalTargetCalculator(ref_cfg=ref_cfg, mpc_horizon=horizon)
 
     def make_params(refs: SolveReferences):
+        trace.device_start("params_upload")
         x_ref = torch.as_tensor(refs.x_ref, dtype=dtype, device=dev)
+        trace.device_end("params_upload")
         return make_centroidal_node_params(ocp, refs.swing, x_ref)
 
     mm, runtime, gains = _assemble(
@@ -331,7 +334,9 @@ def build_wb_mpc(
     calc = WBTargetCalculator(ref_cfg=ref_cfg, mpc_horizon=horizon)
 
     def make_params(refs: SolveReferences):
+        trace.device_start("params_upload")
         x_ref = torch.as_tensor(refs.x_ref, dtype=dtype, device=dev)
+        trace.device_end("params_upload")
         return make_wb_node_params(ocp, refs.swing, x_ref)
 
     n_j = layout.n_joints

@@ -18,7 +18,6 @@ repetition.
 from __future__ import annotations
 
 import dataclasses
-import time as _time
 from typing import Callable
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from wb_humanoid_mpc_tpu_torch.refs.manager import MotionManager
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+from wb_humanoid_mpc_tpu_torch.utils import trace
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
 
 
@@ -68,6 +68,9 @@ class SolveStats:
     # the solve's SQP iterations, and whether it ran the recovery solver
     iterations: int = 0
     recovery: bool = False
+    # the solve's record of `utils/trace.py` (spans, device intervals, idle
+    # by span); None when the recorder is off
+    trace: trace.Record | None = None
 
 
 class MpcRuntime:
@@ -150,69 +153,88 @@ class MpcRuntime:
     def advance(self, t0: float, x_obs: np.ndarray, raw_cmd: np.ndarray,
                 base_vel_estimate: np.ndarray | None = None,
                 terrain_height: float = 0.0) -> SolveStats:
-        t_ref0 = _time.perf_counter()
-        dt_since = 0.0 if self._last_t is None else max(t0 - self._last_t, 1e-4)
-        if base_vel_estimate is None and self.base_vel_extractor is not None:
-            base_vel_estimate = np.asarray(self.base_vel_extractor(np.asarray(x_obs)))
-        refs = self.mm.pre_solve(t0, x_obs, raw_cmd, dt_since,
-                                 base_vel_estimate, terrain_height)
-        params = self.make_node_params(refs)
-        t_ref = _time.perf_counter() - t_ref0
+        record = trace.begin(self.device)
+        try:
+            stats = self._advance(t0, x_obs, raw_cmd, base_vel_estimate, terrain_height)
+        except BaseException:
+            trace.abandon(record)
+            raise
+        stats.trace = trace.end(record, stats.iterations, stats.recovery)
+        return stats
 
-        cf = np.asarray(refs.swing.contact_flags)[: self.N]
-        # soft: the previous solve left g above warm_reset_g, or crawled ->
-        # keep the shifted warm start, run the recovery solver once;
-        # hard: g an order of magnitude out, or no step at all -> restart
-        # from the WeightCompInitializer trajectory as well
-        soft = (self._traj is not None
-                and (self._last_g > self.warm_reset_g
-                     or self._last_alpha <= self.warm_reset_alpha))
-        hard = (self._traj is not None
-                and (self._last_g > 10.0 * self.warm_reset_g
-                     or self._last_alpha <= 0.0
-                     or not np.isfinite(self._last_g)))
-        recovering = soft or hard
-        if hard:
-            xs = np.tile(np.asarray(x_obs), (self.N + 1, 1))
-            us = self._initializer_inputs(cf)
-            self.n_warm_resets += 1
-        else:
-            xs, us = self._warm_start(t0, x_obs)
-            # zero the wrench entries of swing nodes in the warm start: the
-            # time shift moves stance nodes into swing slots
-            us = np.array(us)
-            for i in range(2):
-                us[cf[:, i] < 0.5, 6 * i: 6 * i + 6] = 0.0
-        init_traj = Trajectory(xs=self._tensor(xs), us=self._tensor(us))
-        # AL multipliers are node-indexed; after the receding-horizon shift
-        # they are stale, so each solve restarts them
-        lam = torch.zeros(self.N, self.n_eq, dtype=self.dtype, device=self.device)
-        x0 = self._tensor(x_obs)
+    def _advance(self, t0, x_obs, raw_cmd, base_vel_estimate, terrain_height) -> SolveStats:
+        with trace.timed("refs") as refs_span:
+            dt_since = 0.0 if self._last_t is None else max(t0 - self._last_t, 1e-4)
+            if base_vel_estimate is None and self.base_vel_extractor is not None:
+                base_vel_estimate = np.asarray(self.base_vel_extractor(np.asarray(x_obs)))
+            refs = self.mm.pre_solve(t0, x_obs, raw_cmd, dt_since,
+                                     base_vel_estimate, terrain_height)
+            params = self.make_node_params(refs)
 
-        t_solve0 = _time.perf_counter()
-        use_recovery = recovering and self.recovery_solve_fn is not None
-        fn = self.recovery_solve_fn if use_recovery else self.solve_fn
-        out = fn(t0, x0, init_traj, params, lam)
-        # the staged solver returns (solution, PhaseTimings)
-        timings = None
-        if hasattr(out, "traj"):
-            sol = out
-        else:
-            sol, timings = out
-        # one device -> host copy of the four scalars; it waits for the solve
-        cost, g_norm, defect_norm, step_size = torch.stack(
-            [sol.cost, sol.g_norm, sol.defect_norm, sol.step_size]).double().cpu().tolist()
-        t_solve = _time.perf_counter() - t_solve0
+        with trace.span("warm_start"):
+            cf = np.asarray(refs.swing.contact_flags)[: self.N]
+            # soft: the previous solve left g above warm_reset_g, or crawled ->
+            # keep the shifted warm start, run the recovery solver once;
+            # hard: g an order of magnitude out, or no step at all -> restart
+            # from the WeightCompInitializer trajectory as well
+            soft = (self._traj is not None
+                    and (self._last_g > self.warm_reset_g
+                         or self._last_alpha <= self.warm_reset_alpha))
+            hard = (self._traj is not None
+                    and (self._last_g > 10.0 * self.warm_reset_g
+                         or self._last_alpha <= 0.0
+                         or not np.isfinite(self._last_g)))
+            recovering = soft or hard
+            if hard:
+                xs = np.tile(np.asarray(x_obs), (self.N + 1, 1))
+                us = self._initializer_inputs(cf)
+                self.n_warm_resets += 1
+            else:
+                xs, us = self._warm_start(t0, x_obs)
+                # zero the wrench entries of swing nodes in the warm start: the
+                # time shift moves stance nodes into swing slots
+                us = np.array(us)
+                for i in range(2):
+                    us[cf[:, i] < 0.5, 6 * i: 6 * i + 6] = 0.0
+            trace.device_start("upload")
+            init_traj = Trajectory(xs=self._tensor(xs), us=self._tensor(us))
+            # AL multipliers are node-indexed; after the receding-horizon
+            # shift they are stale, so each solve restarts them
+            lam = torch.zeros(self.N, self.n_eq, dtype=self.dtype, device=self.device)
+            x0 = self._tensor(x_obs)
 
-        self._traj = (sol.traj.xs.double().cpu().numpy(), sol.traj.us.double().cpu().numpy())
+        with trace.timed("solve") as solve_span:
+            use_recovery = recovering and self.recovery_solve_fn is not None
+            fn = self.recovery_solve_fn if use_recovery else self.solve_fn
+            out = fn(t0, x0, init_traj, params, lam)
+            trace.device_end("upload")   # a graphed solve ended it after its `load`
+            # the staged solver returns (solution, PhaseTimings)
+            timings = None
+            if hasattr(out, "traj"):
+                sol = out
+            else:
+                sol, timings = out
+            # one device -> host copy of the four scalars; it waits for the solve
+            trace.device_start("download")   # a graphed solve started it at its copies
+            with trace.span("stats_read"):
+                cost, g_norm, defect_norm, step_size = torch.stack(
+                    [sol.cost, sol.g_norm, sol.defect_norm, sol.step_size]).double().cpu().tolist()
+
+        with trace.span("readback"):
+            xs = sol.traj.xs.double().cpu().numpy()
+            # that copy drained the stream and the next waits for it: the
+            # trace's anchor goes between them
+            trace.device_end("download", anchor=True)
+            self._traj = (xs, sol.traj.us.double().cpu().numpy())
         self._lam = sol.lam
         self._last_t = t0
         self._last_g = g_norm
         self._last_alpha = step_size
-        self.policy = Policy(t0=t0, dt=self.dt, xs=self._traj[0], us=self._traj[1],
-                             contact_flags=np.asarray(refs.swing.contact_flags))
+        with trace.span("policy"):
+            self.policy = Policy(t0=t0, dt=self.dt, xs=self._traj[0], us=self._traj[1],
+                                 contact_flags=np.asarray(refs.swing.contact_flags))
         return SolveStats(
-            solve_time=t_solve, reference_time=t_ref,
+            solve_time=solve_span.seconds, reference_time=refs_span.seconds,
             cost=cost, g_norm=g_norm, defect_norm=defect_norm, step_size=step_size,
             lq_time=timings.lq if timings else 0.0,
             projection_time=timings.projection if timings else 0.0,

@@ -65,6 +65,7 @@ import torch
 
 from wb_humanoid_mpc_tpu_torch.solver.sqp import PhaseTimings
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+from wb_humanoid_mpc_tpu_torch.utils import trace
 from wb_humanoid_mpc_tpu_torch.utils.graphs import Piece, PieceGraphs, require_cuda
 
 
@@ -165,8 +166,11 @@ class GraphSet(_SolveBuffers):
                 self._play(piece)
         for _ in range(todo):
             for piece in self.per_iteration:
-                if piece.when_needed and not bool(self.head.need_any):
-                    continue
+                if piece.when_needed:
+                    with trace.span("ladder_read"):
+                        needed = bool(self.head.need_any)
+                    if not needed:
+                        continue
                 self._play(piece)
 
     def solution(self, iterations: int):
@@ -274,13 +278,20 @@ class GraphedSqpSolve:
         if s is None:
             s = self.sets[key] = self.graph_set(self.it, x0, init_traj, params, lam,
                                                 self.capture)
-        s.load(t0, x0, init_traj, params, lam)
+        with trace.span("load"):
+            s.load(t0, x0, init_traj, params, lam)
+        trace.device_end("upload")
         return s
+
+    def _solution(self, s):
+        """The solution's copies out of the static buffers."""
+        trace.device_start("download")
+        return s.solution(self.iterations)
 
     def __call__(self, t0, x0, init_traj: Trajectory, params, lam):
         s = self._loaded(t0, x0, init_traj, params, lam)
         s.run(self.iterations)
-        return s.solution(self.iterations)
+        return self._solution(s)
 
     def with_iterations(self, iterations: int) -> GraphedSqpSolve:
         """The same solve at another number of SQP iterations, sharing this
@@ -307,7 +318,7 @@ class GraphedStagedSolve(GraphedSqpSolve):
     def __call__(self, t0, x0, init_traj: Trajectory, params, lam):
         s = self._loaded(t0, x0, init_traj, params, lam)
         spent = s.run(self.iterations)
-        return s.solution(self.iterations), PhaseTimings(**spent)
+        return self._solution(s), PhaseTimings(**spent)
 
 
 class _ProgramGraphs(PieceGraphs):

@@ -41,7 +41,6 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from wb_humanoid_mpc_tpu_torch.ocp.base import BarrierParams
 from wb_humanoid_mpc_tpu_torch.ops.riccati import riccati_rollout
@@ -247,50 +246,42 @@ class SqpIteration:
 
     def head(self, traj, lam, times, params, x0, alphas) -> IterationHead:
         cfg, fns = self.cfg, self.fns
-        # the ranges name the phases in a torch.profiler trace
-        # (wb_humanoid_mpc_tpu_torch/tools/profile_sqp.py)
-        with record_function("sqp.lq"):
-            lq = fns.lq_approximation(traj, times, params, lam, self.rho_lq)
+        lq = fns.lq_approximation(traj, times, params, lam, self.rho_lq)
         dx0 = x0 - traj.xs[..., 0, :]
         if not self.al:
-            with record_function("sqp.projection"):
-                reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
-                reduced = levenberg_damp(reduced, cfg.reg)
-            with record_function("sqp.riccati"):
-                dxs, dzs = _solve_lq(reduced, dx0, cfg)
-                dus = recover_controls(proj, dxs, dzs)
+            reduced, proj = project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)
+            reduced = levenberg_damp(reduced, cfg.reg)
+            dxs, dzs = _solve_lq(reduced, dx0, cfg)
+            dus = recover_controls(proj, dxs, dzs)
         else:
-            with record_function("sqp.riccati"):
-                # the unprojected LQ (nu = 35 on humanoid23) through K1
-                dxs, dus = _solve_lq(levenberg_damp(lq, cfg.reg), dx0, cfg)
+            # the unprojected LQ (nu = 35 on humanoid23) through K1
+            dxs, dus = _solve_lq(levenberg_damp(lq, cfg.reg), dx0, cfg)
         head = IterationHead(cost=lq.cost, defect_norm=lq.defect_norm, c0=lq.cost_pure,
                              v0=lq.viol, dxs=dxs, dus=dus)
-        with record_function("sqp.linesearch"):
-            if self.filter:
-                # ocs2 FilterLinesearch: the largest accepted step wins. The
-                # baseline (c0, v0) comes with the LQ pass; the top-2 steps
-                # are tried first. Every instance of a batch has its own.
-                ok_hi = self._try_alphas(head, traj, times, params, alphas[:self.N_HI])
-                need_lo = ~ok_hi.any(dim=0)
-                return head._replace(ok_hi=ok_hi, need_lo=need_lo, need_any=need_lo.any())
-            # AL merit: all steps at once (one K2 launch per flow stage over
-            # steps x instances x nodes); the largest step that decreases it
-            merit0 = self.merit(traj, times, params, lam)
-            merits = self.merit(_candidates(traj, alphas, dxs, dus), times, params, lam)
-            # a candidate that produced NaN/inf must never be selected
-            merits = torch.where(torch.isfinite(merits), merits,
-                                 torch.full_like(merits, float("inf")))
-            ok = merits < merit0
-            best = torch.argmin(merits, dim=0)
-            pick = torch.where(ok.any(dim=0), torch.argmax(ok.to(merits.dtype), dim=0), best)
-            picked = torch.gather(merits, 0, pick[None])[0]
-            return head._replace(alpha=_take(alphas, pick) * (picked < merit0).to(merits.dtype))
+        if self.filter:
+            # ocs2 FilterLinesearch: the largest accepted step wins. The
+            # baseline (c0, v0) comes with the LQ pass; the top-2 steps
+            # are tried first. Every instance of a batch has its own.
+            ok_hi = self._try_alphas(head, traj, times, params, alphas[:self.N_HI])
+            need_lo = ~ok_hi.any(dim=0)
+            return head._replace(ok_hi=ok_hi, need_lo=need_lo, need_any=need_lo.any())
+        # AL merit: all steps at once (one K2 launch per flow stage over
+        # steps x instances x nodes); the largest step that decreases it
+        merit0 = self.merit(traj, times, params, lam)
+        merits = self.merit(_candidates(traj, alphas, dxs, dus), times, params, lam)
+        # a candidate that produced NaN/inf must never be selected
+        merits = torch.where(torch.isfinite(merits), merits,
+                             torch.full_like(merits, float("inf")))
+        ok = merits < merit0
+        best = torch.argmin(merits, dim=0)
+        pick = torch.where(ok.any(dim=0), torch.argmax(ok.to(merits.dtype), dim=0), best)
+        picked = torch.gather(merits, 0, pick[None])[0]
+        return head._replace(alpha=_take(alphas, pick) * (picked < merit0).to(merits.dtype))
 
     def low(self, head: IterationHead, traj, times, params, alphas) -> torch.Tensor:
         """The rest of the filter ladder, [C - 2, *batch]: it counts only for
         the instances that accepted neither top step."""
-        with record_function("sqp.linesearch"):
-            return self._try_alphas(head, traj, times, params, alphas[self.N_HI:]) & head.need_lo
+        return self._try_alphas(head, traj, times, params, alphas[self.N_HI:]) & head.need_lo
 
     def no_low(self, head: IterationHead, alphas) -> torch.Tensor:
         """`low`'s answer when no instance needs the rest of the ladder."""
@@ -300,19 +291,17 @@ class SqpIteration:
     def tail(self, head: IterationHead, ok_lo, traj, lam, g_prev, times, params, alphas):
         """(new traj, lam, max |g|, (cost, max |g|, defect norm, alpha))."""
         cfg = self.cfg
-        with record_function("sqp.linesearch"):
-            alpha = (_first_true(alphas, torch.cat([head.ok_hi, ok_lo])) if self.filter
-                     else head.alpha)
-            new_traj = _step(traj, alpha, head.dxs, head.dus)
-        with record_function("sqp.eq_residuals"):
-            g = self.fns.eq_residuals(new_traj, times, params)
-            g_max = torch.amax(torch.abs(g), dim=(-2, -1))
-            if self.al:
-                # safeguarded update: polish when nearly feasible; at large
-                # violation only reward genuine progress; clamped
-                do_update = (g_max < cfg.al_update_threshold) | (g_max < cfg.al_decrease * g_prev)
-                lam = torch.where(do_update[..., None, None], lam + cfg.rho * g, lam)
-                lam = torch.clamp(lam, -cfg.lam_max, cfg.lam_max)
+        alpha = (_first_true(alphas, torch.cat([head.ok_hi, ok_lo])) if self.filter
+                 else head.alpha)
+        new_traj = _step(traj, alpha, head.dxs, head.dus)
+        g = self.fns.eq_residuals(new_traj, times, params)
+        g_max = torch.amax(torch.abs(g), dim=(-2, -1))
+        if self.al:
+            # safeguarded update: polish when nearly feasible; at large
+            # violation only reward genuine progress; clamped
+            do_update = (g_max < cfg.al_update_threshold) | (g_max < cfg.al_decrease * g_prev)
+            lam = torch.where(do_update[..., None, None], lam + cfg.rho * g, lam)
+            lam = torch.clamp(lam, -cfg.lam_max, cfg.lam_max)
         return new_traj, lam, g_max, (head.cost, g_max, head.defect_norm, alpha)
 
     def solution(self, traj, lam, stats) -> SqpSolution:
@@ -331,7 +320,7 @@ def make_sqp_solver(ocp, flow, bp: BarrierParams, cfg: SqpSolverConfig, *, devic
     default) as CUDA graphs on a CUDA device and eagerly on the CPU, which has
     none; True as CUDA graphs (`solver/graphs.py`: captured once per problem
     shape, replayed every call; raises on the CPU); False eagerly, the twin
-    that the tests and the profiler use. The graphed solve copies its inputs
+    that the tests use. The graphed solve copies its inputs
     into static buffers and returns copies of its results, so a solution the
     caller holds keeps its values after the next call."""
     dev = resolve_device(device)

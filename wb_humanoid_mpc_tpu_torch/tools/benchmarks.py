@@ -7,7 +7,8 @@ Replaces `SqpBenchmarksPublisher`/`DdpBenchmarksPublisher`
 solve, linesearch, controller} wall times per solve) and the runtime
 `FPSTracker` (reference `robot_core/FPSTracker.h:40-59`). The in-process
 equivalent of the `/humanoid/mpc_benchmarks` topic is a subscriber-callback
-registry on `BenchmarksPublisher`.
+registry on `BenchmarksPublisher`. Stats that carry a record of
+`utils/trace.py` (`SolveStats.trace`) add its spans to the summary.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class BenchmarksPublisher:
 
     def __init__(self):
         self.history: list[SolveBenchmark] = []
+        self.traces = []   # the `utils/trace.py` records the stats carried
         self._subscribers = []
 
     def subscribe(self, fn) -> None:
@@ -77,6 +79,9 @@ class BenchmarksPublisher:
             linesearch_time=getattr(stats, "linesearch_time", 0.0),
         )
         self.history.append(b)
+        record = getattr(stats, "trace", None)
+        if record is not None:
+            self.traces.append(record)
         for fn in self._subscribers:
             fn(b)
 
@@ -97,4 +102,15 @@ class BenchmarksPublisher:
             vals = np.array([getattr(b, f"{phase}_time") for b in self.history])
             if vals.any():
                 out[f"{phase}_time_p50"] = float(np.percentile(vals, 50))
+        if self.traces:
+            out["span_self_time_p50"] = _p50_by_name([r.self_s for r in self.traces])
+            idle = [r.idle_s for r in self.traces if r.device is not None]
+            if idle:
+                out["idle_time_p50"] = _p50_by_name(idle)
         return out
+
+
+def _p50_by_name(rows: list[dict]) -> dict:
+    """The median over rows of each name's seconds (0 where a row lacks it)."""
+    names = sorted({k for row in rows for k in row})
+    return {k: float(np.percentile([row.get(k, 0.0) for row in rows], 50)) for k in names}

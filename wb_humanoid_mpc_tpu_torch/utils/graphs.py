@@ -33,7 +33,9 @@ that fails raises, naming the operation; nothing falls back to eager.
 
 A kernel wrapper counts a launch recorded into a graph in its `RECORDED`
 (`ops/_lib.py`); each graph keeps how many launches of each kernel it holds
-and adds them to `LAUNCHES` at every replay.
+and adds them to `LAUNCHES` at every replay. Inside an open record of
+`utils/trace.py` (an `MpcRuntime.advance`) every replay is a span, named by
+its piece's first word, with a device pair around it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from wb_humanoid_mpc_tpu_torch.ops import _lib
+from wb_humanoid_mpc_tpu_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 _CAPTURING = threading.Lock()   # one capture at a time in a process
@@ -103,11 +106,12 @@ class PieceGraphs:
         self.capture_s = self.warmup_s = self.pool_bytes = None
 
     def _play(self, piece: Piece) -> None:
-        if not self.capture or piece.eager:
-            piece.run()
-            return
-        self.graphs[piece.name].replay()
-        _lib.add_replayed(self.held[piece.name])
+        with trace.replay(piece.name):
+            if not self.capture or piece.eager:
+                piece.run()
+                return
+            self.graphs[piece.name].replay()
+            _lib.add_replayed(self.held[piece.name])
 
     def _first_run(self) -> dict[str, float]:
         """Warm up (every piece once, eagerly: the program's first run) and
