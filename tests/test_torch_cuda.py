@@ -26,7 +26,10 @@ each MRT controller's graphed feed-forward, the dummy plant's graphed RK4
 step (on a flow that reads t) and the staged solver's phase graphs against
 their eager twins (and the staged launch counts against the eager ones),
 controllers capturing and replaying in one thread while another captures
-and replays a solve, and a failed controller capture raising. Needs an
+and replays a solve, and a failed controller capture raising. The
+centroidal MPC's node params as one graph: replays against the eager
+params over ticks of other target states, the graph kept across a gain
+update, and one `params` replay inside `refs` a trace record. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -1165,3 +1168,126 @@ def test_trace_replay_times_match_replay_events(card, monkeypatch):
     assert len(got) == len(ref) == 8
     for g, r in zip(got, ref):
         assert abs(g - r) <= 0.02 * r
+
+
+# ---- the centroidal node params as one graph (`interface.build_centroidal_mpc`) ----
+
+def _h23_centroidal(card, n_nodes=60):
+    from wb_humanoid_mpc_tpu_torch.interface import build_centroidal_mpc, mpc_files
+
+    return build_centroidal_mpc(*mpc_files(ASSETS / "humanoid23", "centroidal"),
+                                n_nodes=n_nodes, device=card)
+
+
+def _params_graph(mpc):
+    """The `GraphedFunction` that the runtime's `make_node_params` replays."""
+    from wb_humanoid_mpc_tpu_torch.utils.graphs import GraphedFunction
+
+    (graph,) = [c.cell_contents for c in mpc.runtime.make_node_params.__closure__
+                if isinstance(c.cell_contents, GraphedFunction)]
+    return graph
+
+
+def _params_refs(mpc, seed):
+    """Seeded target states about the initial state, under a walking
+    schedule, in the form `make_node_params` takes."""
+    import types
+
+    from wb_humanoid_mpc_tpu_torch.interface import walking_reference
+
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(mpc.initial_state, dtype=np.float64)
+    return types.SimpleNamespace(swing=walking_reference(mpc.n_nodes),
+                                 x_ref=x0 + 0.05 * rng.standard_normal((mpc.n_nodes + 1,
+                                                                        x0.size)))
+
+
+def _params_against_eager(mpc, refs, card) -> list:
+    """The runtime's params (a replay) against `make_centroidal_node_params`
+    eagerly on the card, leaf by leaf: [(max |d|, limit)]; the replayed
+    leaves are cloned first, since the next replay overwrites them."""
+    from wb_humanoid_mpc_tpu_torch.ocp.params import make_centroidal_node_params
+
+    got = [a.clone() for a in mpc.runtime.make_node_params(refs)]
+    ref = make_centroidal_node_params(mpc.ocp, refs.swing,
+                                      torch.as_tensor(refs.x_ref, dtype=torch.float32,
+                                                      device=card))
+    assert len(got) == len(ref) == 7
+    return [_scaled(a, b) for a, b in zip(got, ref)], got
+
+
+def test_graphed_params_match_eager_on_the_card(card):
+    """humanoid23 centroidal at N = 60, f32: the node params replayed from
+    their CUDA graph (captured at the first call) equal
+    `make_centroidal_node_params` run eagerly within GRAPH_TOL x max(1,
+    max|ref|) on four ticks of other target states, and each tick's leaves
+    differ from the last's (the inputs are read at every replay, not baked
+    into the graph)."""
+    mpc = _h23_centroidal(card)
+    last, worst = None, 0.0
+    for seed in range(4):
+        rows, got = _params_against_eager(mpc, _params_refs(mpc, seed), card)
+        for (err, limit), name in zip(rows, ("contact", "z_pos", "z_vel", "proximity", "x_ref",
+                                             "u_ref", "torso_ref")):
+            assert err <= limit, f"tick {seed} {name}: {err:.3e} > {limit:.3e}"
+            worst = max(worst, err)
+        if last is not None:
+            assert not torch.equal(got[4], last[4]) and not torch.equal(got[6], last[6])
+        last = got
+    (entry,) = _params_graph(mpc).entries.values()
+    assert list(entry.graphs) == ["params (the centroidal node params)"]
+    print(f"params graphed vs eager: max|d| {worst:.3e}")
+
+
+def test_graphed_params_survive_a_gain_update(card):
+    """A gain update rebuilds the solves and keeps the params' graph (the
+    params read the robot and the task-space links, not the gains): after
+    it, the replayed params still equal `make_centroidal_node_params`."""
+    from wb_humanoid_mpc_tpu_torch.mpc.gains import GainUpdate
+
+    mpc = _h23_centroidal(card, n_nodes=6)
+    rt = mpc.runtime
+    rt.advance(0.0, np.asarray(mpc.initial_state, dtype=float), np.zeros(4))
+    graph = _params_graph(mpc)
+    (entry,) = graph.entries.values()
+    captured = dict(entry.graphs)
+    mpc.gains.apply(GainUpdate(term="Q", values=2.0 * np.asarray(mpc.cfg.Q)))
+    for seed in range(2):
+        rows, _ = _params_against_eager(mpc, _params_refs(mpc, 10 + seed), card)
+        for err, limit in rows:
+            assert err <= limit, f"{err:.3e} > {limit:.3e}"
+    assert list(graph.entries.values()) == [entry] and entry.graphs == captured
+
+
+def test_trace_holds_one_params_replay_in_refs(card, monkeypatch):
+    """Inside an open trace record, each `advance` of the centroidal MPC
+    replays the params' graph once: one `params` span, inside `refs`,
+    `replays["params"] == 1`; the upload's device pair lies inside `refs`
+    and the replay's starts there (it may end after the host has left
+    `refs`: the host does not wait for it), every record timing the
+    device."""
+    from wb_humanoid_mpc_tpu_torch.utils import trace
+
+    monkeypatch.setattr(trace, "DEVICE_EVERY", 1)
+    mpc = _h23_centroidal(card, n_nodes=6)
+    rt = mpc.runtime
+    x = np.asarray(mpc.initial_state, dtype=float)
+    records = []
+    for k in range(4):
+        records.append(rt.advance(0.0125 * k, x, np.zeros(4)).trace)
+        x = np.asarray(rt.policy.evaluate(0.0125 * (k + 1))[0], dtype=float)
+    for rec in records:
+        names = [s.name for s in rec.spans]
+        assert names.count("params") == 1 and rec.replays["params"] == 1
+        refs = next(s for s in rec.spans if s.name == "refs")
+        params = next(s for s in rec.spans if s.name == "params")
+        assert rec.spans[params.parent].name == "refs"
+        device = {iv.name: iv for iv in rec.device}
+        upload, replay = device["params_upload"], device["params"]
+        assert refs.start_ns <= upload.start_ns <= upload.end_ns <= refs.end_ns + 50_000
+        assert upload.end_ns <= replay.start_ns + 50_000
+        assert refs.start_ns <= replay.start_ns <= replay.end_ns
+        assert replay.start_ns <= refs.end_ns + 50_000
+        print(f"refs {refs.seconds * 1e3:.3f} ms: params replay device "
+              f"{(device['params'].end_ns - device['params'].start_ns) * 1e-3:.1f} us, "
+              f"idle in refs {rec.idle_s.get('refs', 0.0) * 1e3:.3f} ms")

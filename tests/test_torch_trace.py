@@ -34,8 +34,8 @@ from wb_humanoid_mpc_tpu_torch.utils import trace
 from wb_humanoid_mpc_tpu_torch.utils.trace import Interval, Record, Span
 
 CPU = torch.device("cpu")
-RUNTIME_SPANS = {"advance", "refs", "warm_start", "solve", "load", "A", "C", "ladder_read",
-                 "stats_read", "readback", "policy"}
+RUNTIME_SPANS = {"advance", "refs", "params", "warm_start", "solve", "load", "A", "C",
+                 "ladder_read", "stats_read", "readback", "policy"}
 
 
 @pytest.fixture(scope="module")
@@ -81,9 +81,12 @@ def test_one_record_per_advance_with_nested_spans(mpc):
             assert rec.spans[by[name].parent].name == "advance"
         for name in ("load", "A", "C", "ladder_read", "stats_read"):
             assert rec.spans[by[name].parent].name == "solve"
+        # the node params' graphed function, one replay inside refs
+        assert rec.spans[by["params"].parent].name == "refs"
         # one replay span per piece and iteration, counted
         assert rec.iterations == st.iterations == 2 and rec.recovery is False
-        assert rec.replays == {"A": 2, "C": 2} == {n: names.count(n) for n in ("A", "C")}
+        assert rec.replays == {"A": 2, "C": 2, "params": 1} == {
+            n: names.count(n) for n in ("A", "C", "params")}
         assert names.count("ladder_read") == 2
         # off the card there are no device intervals, hence no idle split
         assert rec.device is None and rec.idle_s == {} and rec.device_s == {}

@@ -40,7 +40,12 @@ from wb_humanoid_mpc_tpu_torch.mpc.gains import GainsService
 from wb_humanoid_mpc_tpu_torch.mpc.runtime import MpcRuntime
 from wb_humanoid_mpc_tpu_torch.ocp.base import BarrierParams
 from wb_humanoid_mpc_tpu_torch.ocp.centroidal_ocp import CentroidalOcp
-from wb_humanoid_mpc_tpu_torch.ocp.params import make_centroidal_node_params, weight_comp_input
+from wb_humanoid_mpc_tpu_torch.ocp.params import (
+    centroidal_node_params,
+    pack_centroidal_inputs,
+    unpack_centroidal_inputs,
+    weight_comp_input,
+)
 from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams, WholeBodyOcp, make_wb_node_params
 from wb_humanoid_mpc_tpu_torch.refs.manager import MotionManager, SolveReferences
 from wb_humanoid_mpc_tpu_torch.refs.swing import SwingReference
@@ -50,6 +55,7 @@ from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig, make_sqp_solve
 from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
 from wb_humanoid_mpc_tpu_torch.utils import trace
 from wb_humanoid_mpc_tpu_torch.utils.device import resolve_device
+from wb_humanoid_mpc_tpu_torch.utils.graphs import GraphedFunction
 
 ASSETS = Path(__file__).resolve().parent / "assets"
 
@@ -288,11 +294,22 @@ def build_centroidal_mpc(
     n_nodes, dt, horizon = _grid(cfg, n_nodes, horizon, dt_override)
     calc = CentroidalTargetCalculator(ref_cfg=ref_cfg, mpc_horizon=horizon)
 
+    # the node params' device work (its kinematics pass is ~330 launches
+    # eagerly) as one CUDA graph on the card, captured at the first call;
+    # eagerly on the same buffers on the CPU
+    nx = layout.state_dim
+    params_graph = GraphedFunction(
+        lambda packed: centroidal_node_params(ocp, *unpack_centroidal_inputs(packed, nx)),
+        dev, "params (the centroidal node params)", capture=dev.type == "cuda",
+        upload="params_upload")
+
     def make_params(refs: SolveReferences):
-        trace.device_start("params_upload")
-        x_ref = torch.as_tensor(refs.x_ref, dtype=dtype, device=dev)
-        trace.device_end("params_upload")
-        return make_centroidal_node_params(ocp, refs.swing, x_ref)
+        """The node params of `refs`: one upload, one replay. They are the
+        graph's static tensors, which the next call overwrites, so the
+        solve reads them within its tick (a graphed solve copies them in
+        its `load`; the eager twin reads them before the next upload)."""
+        packed = torch.as_tensor(pack_centroidal_inputs(refs.swing, refs.x_ref), dtype=dtype)
+        return params_graph.run(packed)
 
     mm, runtime, gains = _assemble(
         cfg, model, ocp, joints, calc, 12, n_nodes, dt, horizon, ref_cfg, gait_file,

@@ -209,15 +209,18 @@ class GraphedFunction:
     call of a shape warms fn up, captures it on `stream` into a pool of its
     own, then replays it) and returns fn's outputs in the graph's static
     tensors, which the caller copies out. `name` names it in a failed
-    capture's error. With capture=False fn runs eagerly on the same buffers,
-    on any device (the CPU tests)."""
+    capture's error, and its first word names its replay in a trace
+    record; `upload`, when given, names the device pair of the copies into
+    the buffers there. With capture=False fn runs eagerly on the same
+    buffers, on any device (the CPU tests)."""
 
     def __init__(self, fn, device: torch.device, name: str, *, capture: bool = True,
-                 stream=None):
+                 stream=None, upload: str | None = None):
         if capture:
             require_cuda(device)
         self.fn, self.device, self.name, self.capture, self.stream = (fn, device, name, capture,
                                                                       stream)
+        self.upload = upload
         self.entries: dict[tuple, _FunctionGraph] = {}
 
     def run(self, *args, non_blocking: bool = False):
@@ -228,7 +231,11 @@ class GraphedFunction:
         if entry is None:
             entry = self.entries[key] = _FunctionGraph(self.fn, args, self.device, self.capture,
                                                        self.stream, self.name)
+        if self.upload is not None:
+            trace.device_start(self.upload)
         entry.load(args, non_blocking)
+        if self.upload is not None:
+            trace.device_end(self.upload)
         if self.capture and not entry.graphs:
             entry._first_run()
         entry._play(entry.pieces[0])

@@ -9,6 +9,7 @@ the record's sequence id and nest:
     advance               the whole call
       refs                `MotionManager.pre_solve` and the node params
                           (its duration is `SolveStats.reference_time`)
+        params            the replay of the centroidal node params' graph
       warm_start          the recovery decision, the shift or the
                           initializer, the uploads of the warm start
       solve               the solve call up to its four scalars
@@ -25,12 +26,12 @@ stream the runtime runs on, taken from a pool of the thread's, in one
 record of every `DEVICE_EVERY` (by sequence id; the others keep their
 spans and counters, and `Record.device` None): one pair
 around each replay, named by its piece, and one for each group of eager
-copies: `params_upload` (the target states, in `refs`), `upload` (from the
+copies: `params_upload` (the params' inputs, in `refs`), `upload` (from the
 warm start's first upload to the end of `load`; to the solve's return for
 a solve without static buffers, the eager twin) and `download` (from the
 solution's clones, or `stats_read`, to the anchor in `readback`). A
 group's pair counts as busy the host's time between its copies. Eager
-kernels outside the pairs (the node params' kinematics pass) are not timed
+kernels outside the pairs (the whole-body node params) are not timed
 and count as idle: the device runs them between the host's launches. The
 anchor is the end of `download`, recorded in `readback` between its two
 synchronous copies: the first has drained the stream, so the card records
