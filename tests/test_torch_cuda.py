@@ -29,7 +29,10 @@ controllers capturing and replaying in one thread while another captures
 and replays a solve, and a failed controller capture raising. The
 centroidal MPC's node params as one graph: replays against the eager
 params over ticks of other target states, the graph kept across a gain
-update, and one `params` replay inside `refs` a trace record. Needs an
+update, and one `params` replay inside `refs` a trace record. The
+benchmark's whole-body solve that K1's float32 summation order once sent
+4.3e-2 from float64 (`tests/_saved_solve.py`), graphed and eager, within
+the benchmark's limit of the plain reference in float64. Needs an
 NVIDIA card and `nvcc`; skipped elsewhere. This file imports no JAX, so it
 also runs where JAX is not installed:
 
@@ -1291,3 +1294,40 @@ def test_trace_holds_one_params_replay_in_refs(card, monkeypatch):
         print(f"refs {refs.seconds * 1e3:.3f} ms: params replay device "
               f"{(device['params'].end_ns - device['params'].start_ns) * 1e-3:.1f} us, "
               f"idle in refs {rec.idle_s.get('refs', 0.0) * 1e3:.3f} ms")
+
+
+def test_saved_wb_walk_solve_matches_the_reference_on_the_card(card):
+    """The benchmark's whole-body solve that the port once answered 4.3e-2
+    from float64 (`tests/_saved_solve.py`: seed 2147490101, episode 2, step
+    77), through the program's own path: `build_wb_mpc`'s graphed solve in
+    float32 (K1, K2 and the CUDA graphs; the first call captures, the later
+    ones replay), and its eager twin, each within the benchmark's limit of
+    the plain reference in float64."""
+    from pathlib import Path
+
+    from mpcbench import compare, harness
+    from wb_humanoid_mpc_tpu_torch import interface
+    from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams
+    from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_sqp_solver
+    from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+
+    # by its path: with --noconftest another installed package may own the
+    # name `tests`
+    saved = harness.load_module(Path(__file__).with_name("_saved_solve.py"), "saved_solve")
+    ref = saved.reference_answer(card)
+    mpc = interface.build_wb_mpc(*saved.files(saved.cell()), device=card, dtype=torch.float32)
+    graphed = mpc.runtime.solve_fn
+    assert isinstance(graphed, GraphedSqpSolve) and graphed.iterations == saved.iterations()
+    args = saved.inputs(Trajectory, WBNodeParams, torch.float32, card)
+    limit = compare.LIMITS["policy_gap_max"]
+    for call in range(3):
+        gap = saved.gap(graphed(*args), ref)
+        print(f"graphed call {call}: gap {gap:.3e}")
+        assert gap < limit, call
+    eager = make_sqp_solver(mpc.ocp, mpc.model.flow_map,
+                            mpc.ocp.barrier_params(card, torch.float32), graphed.it.cfg,
+                            device=card, graphs=False)
+    gap = saved.gap(eager(*args), ref)
+    print(f"eager: gap {gap:.3e}")
+    assert gap < limit

@@ -1,7 +1,9 @@
 """PyTorch port, K1's CUDA source on the CPU: `csrc/riccati.cu` compiled by the
 host C++ compiler against a small shim that runs each thread block as host
 threads, then held against the plain version and the Pallas kernel (interpret
-mode) on the synthetic LQ data of tests/test_ops_riccati.py.
+mode) on the synthetic LQ data of tests/test_ops_riccati.py, and for its
+float32 precision against the plain version's on a whole-body LQ of the
+benchmark (`tests/_saved_solve.py`).
 
 The shim runs one `std::thread` per CUDA thread. `__syncthreads` and the
 named barrier are `std::barrier`s, and warp shuffles go through a per-warp
@@ -35,6 +37,7 @@ import torch
 from tests.test_torch_common import DTYPES, assert_close, jax_mode, to_numpy
 from wb_humanoid_mpc_tpu.ops.riccati import pallas_riccati_rollout
 from wb_humanoid_mpc_tpu_torch.ops import _lib, riccati
+from wb_humanoid_mpc_tpu_torch.solver.riccati import levenberg_damp
 
 FIELDS = ("A", "B", "d", "Qxx", "Quu", "Qux", "qx", "qu", "QN", "qN", "dx0")
 
@@ -394,3 +397,47 @@ def test_emulated_entry_point_refuses_shapes_beyond_shared_memory(emulated):
     assert emulated.wbmpc_riccati_smem_bytes(120, 60, 8) > 232448
     code, _ = _call(emulated, _data(0, 2, 120, 60), "f64", 1e-8)
     assert code != 0
+
+
+def _wb_walk_lq():
+    """The projected, damped LQ of the first iteration of the benchmark's
+    saved whole-body solve (`tests/_saved_solve.py`), built in float32 on
+    the CPU: 29 stages at (58, 21), stage costs far larger than B'PB."""
+    from tests import _saved_solve as saved
+    from wb_humanoid_mpc_tpu_torch import interface
+    from wb_humanoid_mpc_tpu_torch.ocp.wb_ocp import WBNodeParams
+    from wb_humanoid_mpc_tpu_torch.solver.projection import project_lq
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpIteration, SqpSolverConfig, _times
+    from wb_humanoid_mpc_tpu_torch.solver.transcription import Trajectory
+
+    mpc = interface.build_wb_mpc(*saved.files(saved.cell()), device="cpu", dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=mpc.n_nodes, dt=mpc.dt, sqp_iterations=2)
+    it = SqpIteration(mpc.ocp, mpc.model.flow_map,
+                      mpc.ocp.barrier_params("cpu", torch.float32), cfg)
+    t0, x0, traj, params, lam = saved.inputs(Trajectory, WBNodeParams, torch.float32, "cpu")
+    lq = it.fns.lq_approximation(traj, _times(t0, x0, cfg), params, lam, it.rho_lq)
+    reduced = levenberg_damp(project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)[0], cfg.reg)
+    data = {f: getattr(reduced, f).numpy() for f in FIELDS[:-1]}
+    data["dx0"] = (x0 - traj.xs[0]).numpy()
+    return data
+
+
+def test_emulated_kernel_keeps_the_plain_precision_on_the_wb_lq(emulated):
+    """In float32, on the whole-body LQ where the stage costs dwarf the
+    products they join, K1's K, k, dxs and dus lie no further from float64
+    than twice the plain version's. (Summing each product onto its stage
+    cost put K 5.6 times, k 3.9 times further, and one solve of the
+    benchmark 4.3e-2 from float64.)"""
+    data = _wb_walk_lq()
+    ref = _plain(data, "f64", 1e-8)
+
+    def errors(got):
+        out = []
+        for a, r in zip(got, ref):
+            scale = np.maximum(1.0, np.abs(r).reshape(len(r), -1).max(axis=1))
+            out.append(float((np.abs(a - r).reshape(len(r), -1) / scale[:, None]).max()))
+        return out
+
+    kernel, plain = errors(_run(emulated, data, "f32", 1e-8)), errors(_plain(data, "f32", 1e-8))
+    for name, e, p in zip(("K", "k", "dxs", "dus"), kernel, plain):
+        assert e <= 2.0 * p, f"{name}: kernel {e:.3e}, plain {p:.3e}"

@@ -11,7 +11,10 @@ the graph sets' pieces run eagerly, so every replay span is there). The
 device intervals exist on the card only; here a stand-in for
 `torch.cuda.Event` (each event's time the host's clock when it was
 recorded) checks how a record places them, and `tests/test_torch_cuda.py`
-holds the placement on the card."""
+holds the placement on the card. The kernel launch counts of each record
+are held against the wrappers' own counts: on a whole-body MPC whose K2
+wrapper counts its plain pass as a launch (the kernel runs on the card
+only), and on replays' counts added by hand."""
 
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from tests._graphs_cases import _noise, solvers
 from wb_humanoid_mpc_tpu_torch import interface
 from wb_humanoid_mpc_tpu_torch.interface import ASSETS
+from wb_humanoid_mpc_tpu_torch.ops import _lib, fkvel
 from wb_humanoid_mpc_tpu_torch.solver.graphs import GraphedSqpSolve
 from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpIteration, SqpSolverConfig
 from wb_humanoid_mpc_tpu_torch.tools.benchmarks import BenchmarksPublisher
@@ -396,3 +400,115 @@ def test_one_record_in_device_every_times_the_device(monkeypatch):
     # events: 4 a timed record, back after the next record's replay
     assert _HostEvent.made == trace.EVENT_RESERVE
     assert len(trace._local.pool) == trace.EVENT_RESERVE
+
+
+@pytest.fixture(scope="module")
+def wb_mpc():
+    """toy_biped's whole-body MPC at N = 4 in float64, its solve the graphed
+    runner with capture off."""
+    mpc = interface.build_wb_mpc(*interface.mpc_files(ASSETS / "toy_biped", "wb"), n_nodes=4,
+                                 device="cpu", dtype=torch.float64)
+    cfg = SqpSolverConfig(n_nodes=mpc.n_nodes, dt=mpc.dt, sqp_iterations=2)
+    it = SqpIteration(mpc.ocp, mpc.model.flow_map, mpc.ocp.barrier_params(CPU, torch.float64),
+                      cfg)
+    solve = GraphedSqpSolve(it, CPU, capture=False)
+    mpc.runtime.solve_fn, mpc.runtime.recovery_solve_fn = solve, solve.with_iterations(12)
+    return mpc
+
+
+def _count_plain_fkvel(monkeypatch):
+    """K2's wrapper with its plain pass counted as a launch, as the kernel
+    counts on the card."""
+    plain = fkvel.fkvel_batch
+
+    def counted(model, q, v, backend="auto"):
+        _lib.count_launch(fkvel.__name__, on_cuda=False)
+        return plain(model, q, v, backend)
+
+    monkeypatch.setattr(fkvel, "fkvel_batch", counted)
+
+
+def test_wb_params_span_sits_inside_refs(wb_mpc):
+    """`build_wb_mpc`'s node params are one `params` span inside
+    `refs` (eager: no replay of them is counted)."""
+    for st in _run(wb_mpc, 2):
+        rec = st.trace
+        names = [s.name for s in rec.spans]
+        assert names.count("params") == 1
+        by = {s.name: s for s in rec.spans}
+        assert rec.spans[by["params"].parent].name == "refs"
+        assert by["refs"].start_ns <= by["params"].start_ns <= by["params"].end_ns \
+            <= by["refs"].end_ns
+        assert "params" not in rec.replays and rec.replays == {"A": 2, "C": 2}
+
+
+def test_k2_counter_equals_the_wrappers_launches(wb_mpc, monkeypatch):
+    """Over a run of the whole-body MPC the records' K2 counts sum to what
+    K2's wrapper counted, and each record holds its own call's launches."""
+    _count_plain_fkvel(monkeypatch)
+    before = fkvel.LAUNCHES
+    stats = _run(wb_mpc, 4)
+    per_record = [st.trace.launches.get("fkvel", 0) for st in stats]
+    assert sum(per_record) == fkvel.LAUNCHES - before > 0
+    for st, n in zip(stats, per_record):
+        # the RK4 tail's k2..k4 in the LQ pass and the candidates' rollouts
+        # of every iteration: the same count for each two-iteration solve
+        assert st.iterations == 2 and n == per_record[0] and n >= 6
+    # off a record nothing is counted in one
+    n = fkvel.LAUNCHES
+    wb_mpc.model.flow_map_batch(torch.zeros(2, dtype=torch.float64),
+                                torch.zeros(2, wb_mpc.model.state_dim, dtype=torch.float64),
+                                torch.zeros(2, wb_mpc.model.input_dim, dtype=torch.float64))
+    assert fkvel.LAUNCHES == n + 1 and trace.records()[-1] is stats[-1].trace
+
+
+def test_replayed_launches_count_in_the_open_record():
+    """A replay adds what its graph recorded (`_lib.add_replayed`), an
+    eager launch one (`_lib.count_launch`): both in the wrapper's LAUNCHES
+    and in the open record, by the wrapper's last name; with no record
+    open, in LAUNCHES only."""
+    k1 = "wb_humanoid_mpc_tpu_torch.ops.riccati"
+    k2_before, k1_before = fkvel.LAUNCHES, _lib.COUNTERS[k1].LAUNCHES
+    o = trace.begin(CPU)
+    for _ in range(2):
+        _lib.add_replayed({fkvel.__name__: 3, k1: 1})
+    _lib.count_launch(fkvel.__name__, on_cuda=False)
+    rec = trace.end(o, 2, False)
+    assert rec.launches == {"fkvel": 7, "riccati": 2}
+    assert fkvel.LAUNCHES - k2_before == 7 and _lib.COUNTERS[k1].LAUNCHES - k1_before == 2
+    _lib.add_replayed({fkvel.__name__: 3})
+    assert fkvel.LAUNCHES - k2_before == 10 and rec.launches == {"fkvel": 7, "riccati": 2}
+    assert Record(seq=0, spans=[Span("advance", None, 0, 1)], device=None, replays={},
+                  since_ns=0).launches == {}
+
+
+def test_a_collection_the_recorder_sets_off_falls_inside_advance():
+    """`end` builds the record, then reads the clock: a garbage collection
+    that its allocations set off (each taking 5 ms here) lies inside
+    `advance`, so the caller's clock around the call exceeds `advance` by
+    far less than one collection (the benchmark matches a solve's record
+    by that margin)."""
+    import gc
+
+    def slow(phase, info):
+        if phase == "start":
+            time.sleep(5e-3)
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(slow)
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter_ns()
+            o = trace.begin(CPU)
+            with trace.span("refs"):
+                pass
+            gc.set_threshold(1)   # a collection at the next allocation
+            rec = trace.end(o, 2, False)
+            gc.set_threshold(*threshold)
+            wall = time.perf_counter_ns() - t0
+            assert rec.advance.end_ns - rec.advance.start_ns >= 5e6
+            assert wall - (rec.advance.end_ns - rec.advance.start_ns) < 1e6
+            assert [s.name for s in rec.spans] == ["advance", "refs"]
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(slow)

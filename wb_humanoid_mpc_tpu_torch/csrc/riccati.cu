@@ -37,8 +37,12 @@
 // Design (one block, 16 warps, a stage's working set in shared memory):
 // 1. Stage data one stage ahead: stage s-1's M is copied into the second of
 //    two shared buffers with cp.async while stage s computes. Quu, Qux, Qxx,
-//    qu and qx are read from global memory once, as the starting values of
-//    the product they join.
+//    qu and qx are read from global memory once, their loads issued before
+//    the product they join and added to its sum at the end: where B is
+//    small beside the input weights the stage cost dwarfs the nx products,
+//    and a sum started from it rounds each product at its scale (in float32
+//    that puts K five times further from float64 than the plain version on
+//    the whole-body LQ, `tests/test_torch_kernel_emulation.py`).
 // 2. Register-tiled products: each thread accumulates a 4 x 4 tile of X'Y
 //    from 16-byte shared loads: PM = P'M (P symmetric), then only the upper
 //    tiles of W = M'PM, then only the upper tiles of Y'Y, mirrored on the
@@ -516,7 +520,8 @@ __global__ void __launch_bounds__(kThreads)
         int R, C;
         upper_tile(tt, n_cols, R, C);
         const int r0 = 4 * R, c0 = 4 * C;
-        // the product starts from the stage cost: its 32 loads go out together
+        // the stage cost's 32 loads go out together, before the product;
+        // its sum starts from zero, and the cost joins it at the end
         T q1[4][4], q2[4][4], acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -535,7 +540,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = T(0.5) * (q1[i][j] + q2[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            q1[i][j] = T(0.5) * (q1[i][j] + q2[i][j]);
+            acc[i][j] = T(0);
+          }
         }
         tile_xty<true>(Mc, wp, PM, wp, nx, r0, c0, acc);
 #pragma unroll
@@ -544,7 +552,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 0; j < 4; ++j) {
             const int v1 = r0 + i, v2 = c0 + j;
             if (v1 >= nu + nx || v2 >= w || v2 < v1) continue;
-            const T val = acc[i][j];
+            const T val = acc[i][j] + q1[i][j];
             if (v1 < nu) {
               Ch[v1 * wp + v2] = val;
             } else {

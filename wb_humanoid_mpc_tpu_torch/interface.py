@@ -354,7 +354,8 @@ def build_wb_mpc(
         trace.device_start("params_upload")
         x_ref = torch.as_tensor(refs.x_ref, dtype=dtype, device=dev)
         trace.device_end("params_upload")
-        return make_wb_node_params(ocp, refs.swing, x_ref)
+        with trace.span("params"):
+            return make_wb_node_params(ocp, refs.swing, x_ref)
 
     n_j = layout.n_joints
     mm, runtime, gains = _assemble(

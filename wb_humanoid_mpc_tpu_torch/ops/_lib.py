@@ -16,8 +16,10 @@ tests), and RECORDED, the launches recorded into CUDA graphs. A wrapper
 counts where it launches, through `count_launch`; under graph capture that
 counts in RECORDED, and `utils/graphs.py` adds what a graph recorded
 (`recorded()` before and after its capture) to LAUNCHES at each replay
-(`add_replayed`). The collectives of `parallel/collectives.py` count the
-same way, each kind under a name of its own.
+(`add_replayed`). Both also count in the open record of `utils/trace.py`
+(`Record.launches`), so a record holds the launches its call ran. The
+collectives of `parallel/collectives.py` count the same way, each kind
+under a name of its own.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from wb_humanoid_mpc_tpu_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -174,6 +178,7 @@ def count_launch(module_name: str, on_cuda: bool = True) -> None:
         module.RECORDED += 1
     else:
         module.LAUNCHES += 1
+        trace.launched(module_name)
 
 
 def recorded() -> dict[str, int]:
@@ -185,3 +190,4 @@ def add_replayed(held: dict[str, int]) -> None:
     """Count the launches {module name: n} that a graph's replay made."""
     for name, n in held.items():
         COUNTERS[name].LAUNCHES += n
+        trace.launched(name, n)

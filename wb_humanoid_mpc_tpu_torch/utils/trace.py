@@ -9,7 +9,9 @@ the record's sequence id and nest:
     advance               the whole call
       refs                `MotionManager.pre_solve` and the node params
                           (its duration is `SolveStats.reference_time`)
-        params            the replay of the centroidal node params' graph
+        params            the node params: the replay of the centroidal
+                          params' graph, or the whole-body formulation's
+                          eager `make_wb_node_params`
       warm_start          the recovery decision, the shift or the
                           initializer, the uploads of the warm start
       solve               the solve call up to its four scalars
@@ -49,6 +51,12 @@ thread's previous record to the end of this one, that no device interval
 covers. Each idle stretch goes to the innermost span that holds it; what
 lies before `advance` began goes to `outside` (the caller's time between
 two calls).
+
+Each record also counts the launches that its call ran of what
+`ops/_lib.py` counts (`Record.launches`, by the counter's last name:
+`fkvel` for K2, `riccati` for K1, the collectives): each replay adds what
+its graph recorded at capture (`add_replayed`), each eager launch one
+(`count_launch`), so over a run they sum to the counters' `LAUNCHES`.
 
 Records are kept in a ring of the newest `CAPACITY` (`records()`), and
 `SolveStats.trace` holds its solve's. Only a thread with an open record
@@ -126,8 +134,8 @@ class Record:
     """One `advance`: its spans (`spans[0]` is `advance`, each other span
     after its parent), its device intervals (None off a CUDA device and on
     the records that do not time it: `DEVICE_EVERY`), its replays by
-    piece, the solve's SQP iterations and whether it ran the recovery
-    solve. Its window starts at `since_ns`.
+    piece, its kernel launches by wrapper, the solve's SQP iterations and
+    whether it ran the recovery solve. Its window starts at `since_ns`.
 
     The recorder hands it raw rows: the spans as (name, parent, start_ns,
     end_ns), and its device pairs unread (`_Unread`), which become their
@@ -137,14 +145,17 @@ class Record:
     of the process; `Span`s, `Interval`s and the sums below are built when
     first read, off the solve's path."""
 
-    __slots__ = ("seq", "replays", "since_ns", "iterations", "recovery", "_spans", "_device",
-                 "_memo")
+    __slots__ = ("seq", "replays", "launches", "since_ns", "iterations", "recovery", "_spans",
+                 "_end_ns", "_device", "_memo")
 
     def __init__(self, seq: int, spans, device, replays: dict[str, int], since_ns: int,
-                 iterations: int = 0, recovery: bool = False):
+                 iterations: int = 0, recovery: bool = False,
+                 launches: dict[str, int] | None = None):
         self.seq, self.replays, self.since_ns = seq, replays, since_ns
+        self.launches = {} if launches is None else launches
         self.iterations, self.recovery = iterations, recovery
         self._spans = tuple(tuple(s) for s in spans)
+        self._end_ns = None   # `advance`'s end, when `end` reads it after building the record
         self._device = tuple(device) if isinstance(device, list) else device
         self._memo = None
 
@@ -157,7 +168,13 @@ class Record:
 
     @property
     def spans(self) -> list[Span]:
-        return self._cached("spans", lambda: [Span._make(s) for s in self._spans])
+        return self._cached("spans", self._span_list)
+
+    def _span_list(self) -> list[Span]:
+        out = [Span._make(s) for s in self._spans]
+        if self._end_ns is not None:
+            out[0] = out[0]._replace(end_ns=self._end_ns)
+        return out
 
     @property
     def device(self) -> list[Interval] | None:
@@ -282,7 +299,7 @@ class _Open:
     the stream that was current when it opened, the runtime's."""
 
     __slots__ = ("seq", "stream", "profiling", "since_ns", "spans", "stack", "replays",
-                 "started", "pairs", "anchor", "pool", "unread", "range")
+                 "launches", "started", "pairs", "anchor", "pool", "unread", "range")
 
     def __init__(self, seq: int, stream, since_ns: int, pool: list, unread: _Unread | None):
         self.seq = seq
@@ -291,6 +308,7 @@ class _Open:
         self.spans: list[list] = []     # [name, parent, start_ns, end_ns]
         self.stack: list[int] = []      # the open spans, innermost last
         self.replays: dict[str, int] = {}
+        self.launches: dict[str, int] = {}
         self.started: dict[str, torch.cuda.Event] = {}   # open pairs: name -> start event
         self.pairs: list[tuple] = []    # (name, start event, end event)
         self.anchor: tuple[int, int] | None = None   # (pairs up to it, its host time)
@@ -346,7 +364,7 @@ class _Open:
             self.pairs = self.pairs[k:]
         self.release()
         return Record(self.seq, self.spans, device, self.replays, self.since_ns,
-                      int(iterations), bool(recovery))
+                      int(iterations), bool(recovery), self.launches)
 
 
 class _Span:
@@ -453,15 +471,18 @@ def end(o: _Open | None, iterations: int, recovery: bool) -> Record | None:
     anchor); None for None."""
     if o is None:
         return None
-    now = time.perf_counter_ns()
-    o.spans[0][3] = now
     _local.open = None
-    _local.last_end_ns = now
     record = o.finish(iterations, recovery)
     o.read_unread()   # a record with no replay reads the last one here
     if isinstance(record._device, _Unread):
         _local.unread = record._device
     _ring.append(record)
+    # `advance` ends after every allocation of the recorder's: a garbage
+    # collection one of them sets off (tens of ms in a full process) falls
+    # inside it, and nothing between its end and the caller's clock allocates
+    now = time.perf_counter_ns()
+    record._end_ns = now
+    _local.last_end_ns = now
     return record
 
 
@@ -494,6 +515,15 @@ def replay(piece: str):
     name = piece.partition(" ")[0]
     o.replays[name] = o.replays.get(name, 0) + 1
     return _Span(o, name, paired=True)
+
+
+def launched(wrapper: str, n: int = 1) -> None:
+    """Count `n` launches of the kernel of wrapper module `wrapper` (its
+    registered name) in the open record; a no-op with none open."""
+    o = _current()
+    if o is not None:
+        name = wrapper.rpartition(".")[2]
+        o.launches[name] = o.launches.get(name, 0) + n
 
 
 def device_start(name: str) -> None:
