@@ -99,6 +99,9 @@ PEAK_BYTES = 3.35e12
 N_SMS = 132
 N_NODES = 28
 K2_TOL = dict(rtol=1e-4, atol=5e-6)   # the Mosaic tolerance of tests/test_ops_fkvel.py
+# K2's flow variant against the plain flow map in float64 on the same inputs:
+# the flow map's float32 tolerance of tests/test_torch_fkvel.py
+FLOW_TOL = dict(rtol=2e-4, atol=2e-5)
 K1_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_ops_riccati.py Mosaic tier
 K3_TOL = {"f32": 1e-5, "f64": 1e-12}  # x max(1, max|ref|): tests/test_ops_rollout.py
 SOLVE_TOL = 2e-3                      # x max(1, max|ref|): kernels vs plain, whole solves
@@ -192,6 +195,25 @@ def fkvel_work(B: int, n_j: int, itemsize: int) -> tuple[float, float]:
     nq, n_b = 6 + n_j, n_j + 1
     values = B * (2 * nq + n_b * (9 + 3 + 12) + 3 * n_j + 9)
     return values * itemsize, B * (278.0 * n_j + 71.0)
+
+
+def fkvel_flow_work(B: int, n_j: int, n_c: int, itemsize: int) -> tuple[float, float]:
+    """(bytes, operations) of K2's flow variant: xs and us read once, x_dot
+    written once; the tree pass's operations (`fkvel_work`), then per body
+    300 (R c, two R I R^T, five cross products, F and two mat-vecs), per
+    body and column of M's base rows 60, and 200 for the sums, rhs and the
+    6x6 solve."""
+    nq, n_b = 6 + n_j, n_j + 1
+    values = B * (2 * nq + 6 * n_c + n_j + 2 * nq)
+    ops = 278.0 * n_j + 71.0 + 300.0 * n_b + 60.0 * n_b * nq + 12.0 * n_j + 200.0
+    return values * itemsize, B * ops
+
+
+def flow_vs_plain(model, xs, us, got, what: str) -> float:
+    """max |flow variant - plain| against the plain flow map in float64 on
+    the same inputs; raise beyond FLOW_TOL."""
+    ref = model.flow_map_batch(None, xs.double(), us.double(), backend="plain")
+    return max_err([got.double()], [ref], what=what, **FLOW_TOL)
 
 
 def riccati_work(batch: int, N: int, nx: int, nu: int, itemsize: int) -> tuple[float, float]:
@@ -640,7 +662,7 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
         # the kernels' last launches in the solver thread, replays included
         # (the graphed solves are captured by the warm solve below)
         recorders = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda"),
-                     LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda")]
+                     LaunchRecorder(fkvel, "flow_map_cuda", "K2", "cuda")]
         # warm: the first solve (its graphs' capture) and controller call
         # (its graph's capture) of a process are slow; then the controller
         # alone, with no solver thread beside it
@@ -842,18 +864,15 @@ def mrt_phase(torch, riccati, fkvel, card: str) -> dict:
         e2 = r2 = None
         if form == "wb":
             args, kwargs, got = captured["K2"]
-            got = list(got[0]) + list(got[1])
-            again = fkvel.fkvel_cuda(*args, **kwargs)
-            same_bits["K2"] = all(torch.equal(a, b) for a, b in
-                                  zip(got, list(again[0]) + list(again[1])))
+            same_bits["K2"] = torch.equal(got, fkvel.flow_map_cuda(*args, **kwargs))
             if not same_bits["K2"]:
                 raise AssertionError(f"mrt {form}: K2 launched again on the solver thread's "
                                      f"last inputs gives other bits")
-            fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
-            ref2 = list(fk_p) + list(vb_p)
-            e2 = max_err(got, ref2, what=f"mrt {form} K2", **K2_TOL)
-            r2 = max(float(((a - b).abs() / (K2_TOL["atol"] + K2_TOL["rtol"] * b.abs())).max())
-                     for a, b in zip(got, ref2))
+            e2 = flow_vs_plain(*args, got, what=f"mrt {form} K2")
+            ref2 = args[0].flow_map_batch(None, args[1].double(), args[2].double(),
+                                          backend="plain")
+            r2 = float(((got.double() - ref2).abs()
+                        / (FLOW_TOL["atol"] + FLOW_TOL["rtol"] * ref2.abs())).max())
         solve_ms = np.array([r["stats"].solve_time for r in record]) * 1e3
         row = dict(solves=pipe.solve_count, policies_seen=len(loop["policies"]), wall_s=wall,
                    **loop["summary"],
@@ -955,15 +974,15 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
           f"K1 {k1}, K2 {k2} launches in one batched iteration; K2 rows per launch "
           f"{B * N_NODES} (RK4 tail), {2 * B * N_NODES} (top-2 sweep)")
 
-    def rows_of(model, q, v):
-        return q.shape[0]
+    def rows_of(model, xs, us):
+        return xs.shape[0]
 
     def sweep(batch):
         for mod in (riccati, fkvel):
             mod.reset_launches()
         n_rounds = 5 if batch <= 8 else 3
         # count-only: the sweep's timing carries no copies
-        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_of, "cuda", keep=False)
+        rec = LaunchRecorder(fkvel, "flow_map_cuda", rows_of, "cuda", keep=False)
         try:
             r = batched_throughput(batch, N_NODES, n_rounds=n_rounds, device="cuda")
         finally:
@@ -1037,7 +1056,7 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
     # recorder keeps copies of the launches, against the plain version on
     # the same inputs
     def last_k2_launches(batch):
-        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_of, "cuda")
+        rec = LaunchRecorder(fkvel, "flow_map_cuda", rows_of, "cuda")
         solve_b = make_batched_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
         x0s_b, traj_b, params_b, lam_b = batched_inputs(pb, batch, seed=0)
         try:
@@ -1055,26 +1074,24 @@ def batched_phase(torch, riccati, fkvel, card: str, rows: dict) -> dict:
     k2_rows = []
     for batch in sorted({64, b_max}):
         for n_rows, (args, kwargs, got) in sorted(last_k2_launches(batch).items()):
-            model_, q, v = args
-            got = list(got[0]) + list(got[1])
-            fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
-            torch.cuda.synchronize()
-            err = max_err(got, list(fk_p) + list(vb_p), what=f"K2 batch={batch} rows={n_rows}",
-                          **K2_TOL)
-            t_dev = kernel_device_ms(lambda: fkvel.fkvel_cuda(*args, **kwargs), 20)
-            t_p = cuda_time_ms(lambda: fkvel.fkvel_plain(*args, **kwargs), 3, warmup=1)
-            nbytes, ops = fkvel_work(n_rows, model_.n_joints, q.element_size())
+            model_, xs, us = args
+            err = flow_vs_plain(*args, got, what=f"K2 batch={batch} rows={n_rows}")
+            t_dev = kernel_device_ms(lambda: fkvel.flow_map_cuda(*args, **kwargs), 20)
+            t_p = cuda_time_ms(lambda: model_.flow_map_batch(None, xs, us, backend="plain"), 3,
+                               warmup=1)
+            nbytes, ops = fkvel_flow_work(n_rows, model_.robot.n_joints,
+                                          len(model_.contact_frames), xs.element_size())
             b_ms, b_by = bound_ms(nbytes, ops)
             launches = report[batch]["k2_launches_by_rows"][n_rows]
-            k2_rows.append(dict(name=f"fkvel batch={batch} rows={n_rows}", route="cuda",
+            k2_rows.append(dict(name=f"fkvel flow batch={batch} rows={n_rows}", route="cuda",
                                 source="wb_humanoid_mpc_tpu_torch/csrc/fkvel.cu",
                                 replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
                                 launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None))
-            print(f"K2 fkvel batch={batch} rows={n_rows} (the last launch of that size in a "
-                  f"solve apart from the sweep; {launches} launches of it in the sweep's "
-                  f"{report[batch]['iterations']} iterations): max|kernel-plain| {err:.3e} (atol {K2_TOL['atol']} rtol "
-                  f"{K2_TOL['rtol']}); kernel {t_dev * 1e3:.2f} us on the device; plain "
+            print(f"K2 flow variant batch={batch} rows={n_rows} (the last launch of that size "
+                  f"in a solve apart from the sweep; {launches} launches of it in the sweep's "
+                  f"{report[batch]['iterations']} iterations): max|kernel-plain float64| "
+                  f"{err:.3e} (atol {FLOW_TOL['atol']} rtol {FLOW_TOL['rtol']}); kernel {t_dev * 1e3:.2f} us on the device; plain "
                   f"{t_p * 1e3:.1f} us per call; bound {b_ms * 1e3:.4f} us ({b_by}: "
                   f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} MFLOP), {100 * b_ms / t_dev:.2f} % "
                   f"of it | {card}")
@@ -1116,20 +1133,19 @@ def sharded_rank(cases) -> list:
     from wb_humanoid_mpc_tpu_torch.ops import fkvel
     from wb_humanoid_mpc_tpu_torch.parallel.dryrun import sharded_sqp_case
 
-    def rows_in_a_graph(model, q, v):
-        return q.shape[0] if torch.cuda.is_current_stream_capturing() else None
+    def rows_in_a_graph(model, xs, us):
+        return xs.shape[0] if torch.cuda.is_current_stream_capturing() else None
 
     out = []
     for case in cases:
-        rec = LaunchRecorder(fkvel, "fkvel_cuda", rows_in_a_graph, case["device"])
+        rec = LaunchRecorder(fkvel, "flow_map_cuda", rows_in_a_graph, case["device"])
         try:
             r = sharded_sqp_case(**case)
         finally:
             rec.restore()
         caps = rec.last()
         r["k2_last"] = {} if r["coords"] != (0, 0) else {
-            rows: ([a.cpu().numpy() for a in args[1:]],
-                   [t.cpu().numpy() for t in list(got[0]) + list(got[1])])
+            rows: ([a.cpu().numpy() for a in args[1:]], got.cpu().numpy())
             for rows, (args, _, got) in caps.items() if rows is not None}
         out.append(r)
     return out
@@ -1232,7 +1248,7 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
     from wb_humanoid_mpc_tpu_torch.parallel.multihost import run_ranks
     from wb_humanoid_mpc_tpu_torch.solver.sqp import SqpSolverConfig
 
-    robot = load_wb_model(ASSETS / "humanoid23")[1].robot
+    model = load_wb_model(ASSETS / "humanoid23")[1]
     refs = {}
     for B in sorted({2 * n_dp for _, n_dp, _, _ in SHARDED_MESHES}):
         for dt in SHARDED_GATE:
@@ -1279,23 +1295,25 @@ def sharded_phase(torch, fkvel, card: str, rows: dict, device: str = "cuda") -> 
                 continue
             # K2 at this mesh's row counts: a replay's last launch of each size
             for n_rows, (args, got) in sorted(o["k2_last"].items()):
-                q, v = (torch.as_tensor(a, device=device) for a in args)
-                got = [torch.as_tensor(a, device=device) for a in got]
-                fk_p, vb_p = fkvel.fkvel_plain(robot, q, v)
-                torch.cuda.synchronize()
-                err = max_err(got, list(fk_p) + list(vb_p), what=f"K2 sharded {label} "
-                              f"rows={n_rows}", **K2_TOL)
-                t_dev = kernel_device_ms(lambda: fkvel.fkvel_cuda(robot, q, v), 20)
-                t_p = cuda_time_ms(lambda: fkvel.fkvel_plain(robot, q, v), 3, warmup=1)
-                nbytes, ops = fkvel_work(n_rows, robot.n_joints, q.element_size())
+                xs, us = (torch.as_tensor(a, device=device) for a in args)
+                got = torch.as_tensor(got, device=device)
+                err = flow_vs_plain(model, xs, us, got, what=f"K2 sharded {label} "
+                                    f"rows={n_rows}")
+                t_dev = kernel_device_ms(lambda: fkvel.flow_map_cuda(model, xs, us), 20)
+                t_p = cuda_time_ms(lambda: model.flow_map_batch(None, xs, us, backend="plain"),
+                                   3, warmup=1)
+                nbytes, ops = fkvel_flow_work(n_rows, model.robot.n_joints,
+                                              len(model.contact_frames), xs.element_size())
                 b_ms, b_by = bound_ms(nbytes, ops)
                 launches = o["flow_batch_calls"][n_rows]
-                k2_rows.append(dict(name=f"fkvel sharded {label} rows={n_rows}", route="cuda",
+                k2_rows.append(dict(name=f"fkvel flow sharded {label} rows={n_rows}",
+                                    route="cuda",
                                     source="wb_humanoid_mpc_tpu_torch/csrc/fkvel.cu",
                                     replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
                                     launches=launches, max_abs_err=err, ms=t_dev, plain_ms=t_p,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-                print(f"K2 fkvel sharded {label} rows={n_rows} (rank 0's last launch of that "
+                print(f"K2 flow variant sharded {label} rows={n_rows} (rank 0's last launch of "
+                      f"that "
                       f"size in a graph's replay, {launches} of its launches in the graphed "
                       f"solve): max|kernel-plain| {err:.3e}; kernel "
                       f"{t_dev * 1e3:.2f} us on the device; plain {t_p * 1e3:.1f} us per call; "
@@ -1555,8 +1573,12 @@ def graphs_phase(torch, riccati, fkvel, card: str) -> dict:
         raise AssertionError(f"graphs: the first call (its eager warm-up iteration, the lower "
                              f"ladder included) launched K1 {riccati.LAUNCHES}, K2 "
                              f"{fkvel.LAUNCHES} times; expected 1 and 9")
-    if any(set(n) - {riccati.__name__, fkvel.__name__} for n in gs.held.values()):
+    flow = fkvel._FLOW   # the counter of K2's flow variant, a part of K2's
+    if any(set(n) - {riccati.__name__, fkvel.__name__, flow} for n in gs.held.values()):
         raise AssertionError(f"graphs: the graphs hold launches of other kernels {gs.held}")
+    if any(n.get(flow, 0) != n.get(fkvel.__name__, 0) for n in gs.held.values()):
+        raise AssertionError(f"graphs: a K2 launch the graphs hold is not the flow variant "
+                             f"{gs.held}")
     held = {name: dict(K1=n.get(riccati.__name__, 0), K2=n.get(fkvel.__name__, 0))
             for name, n in gs.held.items()}
     if held != {"A head": dict(K1=1, K2=6), "B low": dict(K1=0, K2=3),
@@ -1603,7 +1625,7 @@ def graphs_phase(torch, riccati, fkvel, card: str) -> dict:
         recs = ([] if kind == "none" else
                 [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda",
                                 keep=kind == "copies"),
-                 LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda", keep=kind == "copies")])
+                 LaunchRecorder(fkvel, "flow_map_cuda", "K2", "cuda", keep=kind == "copies")])
         fresh = make_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, device="cuda")
         try:
             fresh(0.0, pb.x0, first.traj, pb.params, first.lam)
@@ -1716,7 +1738,7 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         csv_path = os.path.join(tmp, "observations.csv")
         recorders = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda"),
-                     LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda")]
+                     LaunchRecorder(fkvel, "flow_map_cuda", "K2", "cuda")]
         for mod in (riccati, fkvel):
             mod.reset_launches()
         t0 = time.perf_counter()
@@ -1748,9 +1770,7 @@ def launch_phase(torch, riccati, fkvel, card: str) -> dict:
         e1 = max_err(got, riccati.riccati_rollout_plain(*args, **kwargs),
                      what="launch dummy-sim K1 (last launch)", **K1_TOL)
         args, kwargs, got = caps["K2"]
-        fk_p, vb_p = fkvel.fkvel_plain(*args, **kwargs)
-        e2 = max_err(list(got[0]) + list(got[1]), list(fk_p) + list(vb_p),
-                     what="launch dummy-sim K2 (last launch)", **K2_TOL)
+        e2 = flow_vs_plain(*args, got, what="launch dummy-sim K2 (last launch)")
     summary = res["summary"]
     out["dummy-sim"] = dict(summary=summary, ticks=len(log.times), wall_s=wall,
                             ticks_per_s=len(log.times) / wall, sqp_iterations=n_it,
@@ -2107,6 +2127,45 @@ def main() -> int:
                          max_abs_err=k2_err, ms=k2_ms[28][0], plain_ms=k2_ms[28][1],
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    # ---- 3b. K2's flow variant: the whole-body flow map in one launch, at the
+    # rows of a whole-body solve of 29 nodes (RK4 tail, top-2 sweep, lower
+    # ladder), stance wrenches near a standing pose ----
+    flow_ms, flow_err = {}, 0.0
+    n_c = len(model.contact_frames)
+    for B in (29, 2 * 29, 6 * 29):
+        q = np.concatenate([rng.normal(size=(B, 2)) * 0.5, 0.75 + rng.normal(size=(B, 1)) * 0.03,
+                            rng.normal(size=(B, 3)) * 0.1,
+                            rng.normal(size=(B, robot.n_joints)) * 0.3], 1)
+        w = [np.concatenate([rng.normal(size=(B, 2)) * 2.5,
+                             0.5 * robot.total_mass * robot.gravity + rng.normal(size=(B, 1)) * 5,
+                             rng.normal(size=(B, 3))], 1) for _ in range(n_c)]
+        xs = torch.as_tensor(np.concatenate([q, rng.normal(size=(B, robot.nq)) * 0.5], 1),
+                             dtype=torch.float32, device=dev)
+        us = torch.as_tensor(np.concatenate(w + [rng.normal(size=(B, robot.n_joints)) * 3], 1),
+                             dtype=torch.float32, device=dev)
+        got = fkvel.flow_map_cuda(model, xs, us)
+        torch.cuda.synchronize()
+        err = flow_vs_plain(model, xs, us, got, what=f"K2 flow variant rows={B}")
+        flow_err = max(flow_err, err)
+        t_dev = kernel_device_ms(lambda: fkvel.flow_map_cuda(model, xs, us), 50)
+        t_k = cuda_time_ms(lambda: fkvel.flow_map_cuda(model, xs, us), 200)
+        t_p = cuda_time_ms(lambda: model.flow_map_batch(None, xs, us, backend="plain"), 20)
+        flow_ms[B] = (t_dev, t_p)
+        nbytes, ops = fkvel_flow_work(B, robot.n_joints, n_c, 4)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        print(f"K2 flow variant rows={B}: max|kernel-plain float64| {err:.3e}; kernel "
+              f"{t_dev * 1e3:.2f} us on the device, {t_k * 1e3:.2f} us per call with its "
+              f"wrapper; plain (FK pass + base-rows dynamics) {t_p * 1e3:.1f} us per call; "
+              f"bound {b_ms * 1e3:.4f} us ({b_by}: {nbytes / 1e3:.1f} KB, {ops / 1e6:.3f} "
+              f"MFLOP), {100 * b_ms / t_dev:.3f} % of it")
+    nbytes, ops = fkvel_flow_work(29, robot.n_joints, n_c, 4)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    rows["fkvel_flow"] = dict(name="fkvel flow", route="cuda",
+                              source="wb_humanoid_mpc_tpu_torch/csrc/fkvel.cu",
+                              replaces="wb_humanoid_mpc_tpu/ops/fkvel.py:235",
+                              max_abs_err=flow_err, ms=flow_ms[29][0], plain_ms=flow_ms[29][1],
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
     # ---- 4. K1: fused Riccati + rollout ----
     def lq_tensors(seed, N, nx, nu, quu_span=1.0, batch=None, dtype=np.float32):
         r = np.random.default_rng(seed)
@@ -2169,7 +2228,7 @@ def main() -> int:
     # the device, in the graphs (one one-element add a launch, kept alive
     # with the solve since its graphs write to them)
     counters = [LaunchRecorder(riccati, "riccati_rollout_cuda", "K1", "cuda", keep=False),
-                LaunchRecorder(fkvel, "fkvel_cuda", "K2", "cuda", keep=False)]
+                LaunchRecorder(fkvel, "flow_map_cuda", "K2", "cuda", keep=False)]
     fkvel.reset_launches()
     riccati.reset_launches()
     t0 = time.perf_counter()
@@ -2235,7 +2294,7 @@ def main() -> int:
         raise AssertionError("main path: kernels and plain versions took different steps")
 
     rows["riccati"]["launches"] = launches["riccati"]
-    rows["fkvel"]["launches"] = launches["fkvel"]
+    rows["fkvel_flow"]["launches"] = launches["fkvel"]   # every main-path K2 launch
 
     # ---- 5b. the compiled solve against its eager twin ----
     compiled = graphs_phase(torch, riccati, fkvel, card)
@@ -2452,7 +2511,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launch_floor_ms")
     kernels = [{k: r[k] for k in keys if k in r}
-               for r in (rows["riccati"], rows["fkvel"], rows["rollout"],
+               for r in (rows["riccati"], rows["fkvel"], rows["fkvel_flow"], rows["rollout"],
                          *rows["riccati_batched"], *rows["fkvel_batched"],
                          *rows["fkvel_sharded"])]
     print(json.dumps({"kernels": kernels}))

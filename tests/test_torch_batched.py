@@ -150,8 +150,13 @@ def counting_kernels(monkeypatch):
         fkvel.LAUNCHES += 1
         return fkvel.fkvel_plain(*args, **kwargs)
 
+    def k2_flow(model, xs, us):
+        fkvel.LAUNCHES += 1
+        return model.flow_map_batch(None, xs, us, backend="plain")
+
     monkeypatch.setattr(riccati, "riccati_rollout_cuda", k1)
     monkeypatch.setattr(fkvel, "fkvel_cuda", k2)
+    monkeypatch.setattr(fkvel, "flow_map_cuda", k2_flow)
     riccati.reset_launches()
     fkvel.reset_launches()
     yield

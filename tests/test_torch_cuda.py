@@ -9,7 +9,10 @@ AL path's unprojected LQ from real solver data; for K3 the cluster
 geometry: the kernel's own plan, the f64 (28, 58, 35) ring of 3 slots for
 4 stages a CTA, N below the cluster of 8 (one stage a rank), a forced ring
 in f32, the refusal of ranks without stages, inputs off 16-byte alignment,
-batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224. The
+batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224;
+its flow variant (the whole-body flow map in one launch) at the solve's 29,
+58 and 174 rows and at 7168, with stance and walking wrenches, and every K2
+launch of a graphed whole-body solve is the flow variant. The
 closed loop of each formulation (`build_*_mpc` + `run_dummy_sim`, humanoid23
 at N = 6) runs through the kernels and against its plain twin; the launch
 CLI's `dummy-sim` and, where the machine has mujoco, a short MuJoCo loop
@@ -39,7 +42,9 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K2 as tests/test_ops_fkvel.py's Mosaic tier (f32 rtol 1e-4,
-atol 5e-6), K1 as tests/test_ops_riccati.py's (f32 rtol 1e-3, atol 5e-4);
+atol 5e-6), its flow variant as tests/test_torch_fkvel.py holds the flow map
+(f32 rtol 2e-4, atol 2e-5, f64 1e-10; against the plain version in float64 on
+the same inputs, as tests/test_torch_kernel_emulation_flow.py), K1 as tests/test_ops_riccati.py's (f32 rtol 1e-3, atol 5e-4);
 K3 as tests/test_ops_rollout.py's (f32 1e-5, f64 1e-12, times max(1,
 max|ref|)); otherwise float64 at 1e-9 relative to each output's largest entry."""
 
@@ -90,6 +95,41 @@ def test_fkvel_kernel_matches_plain(card, robot, dtype, B):
     assert fkvel.LAUNCHES == before + 1
     fk_p, vb_p = fkvel.fkvel_plain(r, q, v)
     _close(list(fk_k) + list(vb_k), list(fk_p) + list(vb_p), FK_TOL[dtype], f"K2 {robot} B={B}")
+
+
+FLOW_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+            torch.float64: dict(rtol=1e-10, atol=1e-10)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("wrenches", ["stance", "walk"])
+@pytest.mark.parametrize("robot", ["humanoid23", "toy_biped"])
+@pytest.mark.parametrize("B", [29, 58, 174, 7168])
+def test_fkvel_flow_kernel_matches_plain(card, B, robot, wrenches, dtype):
+    """`flow_map_batch` on CUDA tensors is one launch of K2's flow variant,
+    counted in LAUNCHES and FLOW_LAUNCHES, and gives the plain flow map
+    (computed in float64 on the same inputs) near a standing pose: stance
+    wrenches share the weight between the feet, walking ones put it all on
+    the left foot."""
+    model = load_wb_model(ASSETS / robot)[1]
+    r = model.robot
+    rng = np.random.default_rng(B + len(robot) + len(wrenches))
+    q = np.concatenate([rng.normal(size=(B, 2)) * 0.5, 0.75 + rng.normal(size=(B, 1)) * 0.03,
+                        rng.normal(size=(B, 3)) * 0.1, rng.normal(size=(B, r.n_joints)) * 0.3], 1)
+    share = (0.5, 0.5) if wrenches == "stance" else (1.0, 0.0)
+    us = [np.concatenate([rng.normal(size=(B, 2)) * 5.0 * s,
+                          s * r.total_mass * r.gravity + rng.normal(size=(B, 1)) * 10.0 * s,
+                          rng.normal(size=(B, 3)) * 2.0 * s], 1) for s in share]
+    xs = torch.as_tensor(np.concatenate([q, rng.normal(size=(B, r.nq)) * 0.5], 1), dtype=dtype,
+                         device=card)
+    us = torch.as_tensor(np.concatenate(us + [rng.normal(size=(B, r.n_joints)) * 3.0], 1),
+                         dtype=dtype, device=card)
+    before = (fkvel.LAUNCHES, fkvel.FLOW_LAUNCHES)
+    got = model.flow_map_batch(None, xs, us)          # "auto" on CUDA tensors: the flow variant
+    assert (fkvel.LAUNCHES, fkvel.FLOW_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = model.flow_map_batch(None, xs.double(), us.double(), backend="plain")
+    torch.testing.assert_close(got.double(), ref, **FLOW_TOL[dtype],
+                               msg=lambda m: f"K2 flow {robot} {wrenches} B={B}: {m}")
 
 
 def _lq(seed, N, nx, nu, dtype, card, batch=None, quu_span=1.0):
@@ -721,7 +761,8 @@ def test_gains_rebuild_recaptures(card):
 def test_graphed_launch_counters_advance_per_replay(card):
     """K1 and K2 count every launch a replay makes, as the eager twin's
     wrappers do on the same calls: K1 once per iteration, K2 6 to 9 times,
-    the two counts equal."""
+    the two counts equal; every K2 launch is the flow variant (each flow-map
+    call one launch)."""
     pb, graphed, eager = _graphed_and_eager(card, 28, sqp_iterations=2)
     graphed(0.0, pb.x0, pb.traj, pb.params, pb.lam)   # capture
     counts = []
@@ -733,9 +774,10 @@ def test_graphed_launch_counters_advance_per_replay(card):
             sol = solve(0.0, pb.x0, traj, pb.params, lam)
             traj, lam = sol.traj, sol.lam
         torch.cuda.synchronize()
-        counts.append((riccati.LAUNCHES, fkvel.LAUNCHES))
+        counts.append((riccati.LAUNCHES, fkvel.LAUNCHES, fkvel.FLOW_LAUNCHES))
     assert counts[0] == counts[1], counts
     assert counts[0][0] == 6 and 36 <= counts[0][1] <= 54, counts
+    assert counts[0][2] == counts[0][1], counts
 
 
 def test_graph_capture_failure_raises(card, monkeypatch):
@@ -1321,10 +1363,13 @@ def test_saved_wb_walk_solve_matches_the_reference_on_the_card(card):
     assert isinstance(graphed, GraphedSqpSolve) and graphed.iterations == saved.iterations()
     args = saved.inputs(Trajectory, WBNodeParams, torch.float32, card)
     limit = compare.LIMITS["policy_gap_max"]
+    fkvel.reset_launches()
     for call in range(3):
         gap = saved.gap(graphed(*args), ref)
         print(f"graphed call {call}: gap {gap:.3e}")
         assert gap < limit, call
+    # every K2 launch of the graphed solve is the flow variant
+    assert fkvel.FLOW_LAUNCHES == fkvel.LAUNCHES > 0, (fkvel.FLOW_LAUNCHES, fkvel.LAUNCHES)
     eager = make_sqp_solver(mpc.ocp, mpc.model.flow_map,
                             mpc.ocp.barrier_params(card, torch.float32), graphed.it.cfg,
                             device=card, graphs=False)

@@ -39,8 +39,9 @@ EDITS = (
     ("extern __shared__ __align__(16) unsigned char smem_raw[];",
      "unsigned char* smem_raw = emu_smem;"),
 )
-LAUNCH = re.compile(r"fkvel_kernel<T><<<B, kThreads, smem, "
+LAUNCH = re.compile(r"fkvel_kernel<T, kFlow><<<B, kThreads, smem, "
                     r"static_cast<cudaStream_t>\(stream\)>>>\(")
+HOST_LAUNCH = "emu_launch(fkvel_kernel<T, kFlow>, B, kThreads, smem, "
 CASES = [(robot, dtype, B) for robot in ("humanoid23", "toy_biped") for dtype in ("f32", "f64")
          for B in (1, 7, 28, 130)]
 
@@ -53,8 +54,7 @@ def _case_id(case):
 def emulated(tmp_path_factory):
     """K2's C entry points, built from csrc/fkvel.cu for the host."""
     return build_host_library(tmp_path_factory.mktemp("k2_host"), "fkvel.cu", EDITS, LAUNCH,
-                              "emu_launch(fkvel_kernel<T>, B, kThreads, smem, ",
-                              ("wbmpc_fkvel_f32", "wbmpc_fkvel_f64"))
+                              HOST_LAUNCH, ("wbmpc_fkvel_f32", "wbmpc_fkvel_f64"))
 
 
 def _inputs(robot: str, B: int):

@@ -57,16 +57,22 @@ class WholeBodyModel:
         return self._accelerations(fk, vb, v, u)
 
     def flow_map_batch(self, ts, xs, us, backend: str = "auto"):
-        """Flow map over a leading batch dim (ts [B], xs [B,nx], us [B,nu]) with
-        the FK + velocity/bias tree pass in one call of `ops/fkvel.py`: the CUDA
-        kernel for CUDA tensors (backend "auto" or "cuda"), the plain version
-        for CPU tensors or backend "plain". Used for the RK4 stages and
-        line-search rollouts, which are not differentiated."""
-        from wb_humanoid_mpc_tpu_torch.ops.fkvel import fkvel_batch
+        """Flow map over a leading batch dim (ts [B], xs [B,nx], us [B,nu]).
+        Backend "cuda" (and "auto" on CUDA tensors): one launch of K2's flow
+        variant, `ops/fkvel.py::flow_map_cuda`, from (xs, us) to x_dot.
+        Backend "plain" (and "auto" on CPU tensors): its plain version, the
+        batched FK + velocity/bias pass of `ops/fkvel.py` then
+        `_accelerations`. Used for the RK4 stages and line-search rollouts,
+        which are not differentiated."""
+        from wb_humanoid_mpc_tpu_torch.ops import fkvel
 
+        if backend == "auto":
+            backend = "cuda" if xs.is_cuda else "plain"
+        if backend == "cuda":
+            return fkvel.flow_map_cuda(self, xs, us)
         q = self.layout.generalized_coordinates(xs)
         v = self.layout.generalized_velocities(xs)
-        fk, vb = fkvel_batch(self.robot, q, v, backend=backend)
+        fk, vb = fkvel.fkvel_batch(self.robot, q, v, backend=backend)
         return self._accelerations(fk, vb, v, us)
 
     def joint_torques(self, x, u):

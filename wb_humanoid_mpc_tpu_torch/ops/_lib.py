@@ -55,6 +55,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "wbmpc_fkvel_f32": [_P] * 4 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
     "wbmpc_fkvel_f64": [_P] * 4 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
+    "wbmpc_fkvel_flow_f32": [_P] * 4 + [_D] + [_P] * 3 + [_I] * 4 + [_P],
+    "wbmpc_fkvel_flow_f64": [_P] * 4 + [_D] + [_P] * 3 + [_I] * 4 + [_P],
     "wbmpc_riccati_rollout_f32": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_riccati_rollout_f64": [_P] * 15 + [_I] * 4 + [_D, _P],
     "wbmpc_forward_rollout_f32": [_P] * 8 + [_I] * 4 + [_P],

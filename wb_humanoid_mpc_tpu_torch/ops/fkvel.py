@@ -1,4 +1,5 @@
-"""K2: the FK + velocity/bias tree pass as one CUDA kernel launch.
+"""K2: the FK + velocity/bias tree pass as one CUDA kernel launch, and its
+flow variant, the whole-body flow map in one launch.
 
 PyTorch counterpart of `wb_humanoid_mpc_tpu/ops/fkvel.py`. The kernel
 (`csrc/fkvel.cu`: one warp per batch element, the tree walked level by
@@ -11,12 +12,20 @@ Dispatch, `fkvel_batch(model, q, v, backend)`:
   "auto"  — the kernel for CUDA tensors, the plain version for CPU tensors;
   "cuda"  — the kernel (raises for tensors that are not on a CUDA device);
   "plain" — the plain version on any device (to hold the kernel against it).
+
+`flow_map_cuda(model, xs, us)` launches the flow variant: from whole-body
+states and inputs straight to x_dot, the tree pass and then the base-rows
+dynamics of `models/wb_model.py::_accelerations` in the same block. It is
+what `WholeBodyModel.flow_map_batch` runs on CUDA tensors; its plain version
+is that method's backend "plain". Its launches count in LAUNCHES, as every
+K2 launch, and in FLOW_LAUNCHES.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import types
 
 import numpy as np
 import torch
@@ -31,10 +40,19 @@ from wb_humanoid_mpc_tpu_torch.models.robot.urdf import RobotModel
 from wb_humanoid_mpc_tpu_torch.ops import _lib
 
 _lib.register_counter(__name__)   # LAUNCHES and RECORDED (`ops/_lib.py`)
+_FLOW = f"{__name__}_flow"        # the flow variant's launches, a part of LAUNCHES
+_lib.register_counter(_FLOW, types.SimpleNamespace())
+
+
+def __getattr__(name: str):
+    if name == "FLOW_LAUNCHES":
+        return _lib.COUNTERS[_FLOW].LAUNCHES
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
     _lib.reset_launches(__name__)
+    _lib.reset_launches(_FLOW)
 
 
 def fkvel_plain(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK, VelBias]:
@@ -124,6 +142,65 @@ def fkvel_cuda(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> tuple[FK,
     fk = FK(R=R, p=p, joint_axis_w=axes, joint_origin_w=p[:, 1:], E_base=E)
     vel = VelBias(*vb.unbind(2))   # rows v_o, omega, a_o, domega
     return fk, vel
+
+
+def _flow_tables(model, device: torch.device, dtype: torch.dtype):
+    """(contacts, dyn): the flow variant's tables for the whole-body `model`,
+    built once per (contact frames, device, dtype). `contacts` holds each
+    contact frame's body; `dyn` per body m, c, I_o and I_c = I_o - m S(c)^T
+    S(c) (`models/dynamics.py::bias_wrenches`), then each contact frame's
+    point in its body, then the ancestor mask [n_b, nq] as 0 or 1, taken in
+    float64 and then cast."""
+    robot = model.robot
+    key = ("fkvel_flow", tuple(model.contact_frames), device, dtype)
+    hit = robot.tensor_cache.get(key)
+    if hit is None:
+        m = np.asarray(robot.mass, dtype=np.float64)
+        c = np.asarray(robot.com, dtype=np.float64)
+        Io = np.asarray(robot.inertia_o, dtype=np.float64)
+        Sc = np.zeros((len(m), 3, 3))
+        Sc[:, 0, 1], Sc[:, 0, 2], Sc[:, 1, 2] = -c[:, 2], c[:, 1], -c[:, 0]
+        Sc -= Sc.transpose(0, 2, 1)
+        Ic = Io - m[:, None, None] * np.einsum("bki,bkj->bij", Sc, Sc)
+        frames = [robot.frames[f] for f in model.contact_frames]
+        dyn = np.concatenate([
+            np.concatenate([m[:, None], c, Io.reshape(-1, 9), Ic.reshape(-1, 9)], 1).ravel(),
+            np.concatenate([np.asarray(f.p, dtype=np.float64) for f in frames]),
+            np.asarray(robot.ancestor_mask, dtype=np.float64).ravel()])
+        hit = (torch.as_tensor([f.body for f in frames], dtype=torch.int32, device=device),
+               torch.as_tensor(dyn, dtype=dtype, device=device))
+        robot.tensor_cache[key] = hit
+    return hit
+
+
+def flow_map_cuda(model, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """Launch the flow variant on the current stream: x_dot [B, nx] of the
+    whole-body `model` (`models/wb_model.py::WholeBodyModel`) at xs [B, nx],
+    us [B, nu], CUDA tensors."""
+    if not (xs.is_cuda and us.is_cuda and xs.device == us.device):
+        raise ValueError("flow_map_cuda needs xs and us on one CUDA device")
+    if xs.dtype not in (torch.float32, torch.float64) or us.dtype != xs.dtype:
+        raise ValueError(f"flow_map_cuda takes float32 or float64, got {xs.dtype}/{us.dtype}")
+    robot = model.robot
+    n_j, n_c = robot.n_joints, len(model.contact_frames)
+    if (xs.dim() != 2 or xs.shape[1] != 2 * robot.nq or us.dim() != 2
+            or us.shape != (xs.shape[0], 6 * n_c + n_j)):
+        raise ValueError(f"flow_map_cuda needs xs [B, {2 * robot.nq}] and us "
+                         f"[B, {6 * n_c + n_j}], got {tuple(xs.shape)}, {tuple(us.shape)}")
+    xs, us = xs.contiguous(), us.contiguous()
+    joints, geo, n_levels = _tables(robot, xs.device, xs.dtype)
+    contacts, dyn = _flow_tables(model, xs.device, xs.dtype)
+    out = torch.empty_like(xs)
+    lib = _lib.library()
+    fn = lib.wbmpc_fkvel_flow_f32 if xs.dtype == torch.float32 else lib.wbmpc_fkvel_flow_f64
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    code = fn(xs.data_ptr(), us.data_ptr(), joints.data_ptr(), geo.data_ptr(),
+              float(robot.gravity), contacts.data_ptr(), dyn.data_ptr(), out.data_ptr(),
+              xs.shape[0], n_j, n_levels, n_c, stream)
+    _lib.check(lib, code, "fkvel flow kernel")
+    _lib.count_launch(__name__)
+    _lib.count_launch(_FLOW)
+    return out
 
 
 def fkvel_batch(model: RobotModel, q: torch.Tensor, v: torch.Tensor,
