@@ -9,7 +9,13 @@ AL path's unprojected LQ from real solver data; for K3 the cluster
 geometry: the kernel's own plan, the f64 (28, 58, 35) ring of 3 slots for
 4 stages a CTA, N below the cluster of 8 (one stage a rank), a forced ring
 in f32, the refusal of ranks without stages, inputs off 16-byte alignment,
-batches of 3 and 4, and bit-identical results from repeated launches). K2 runs at B = 1, 28, 130 and the merit search's 224;
+batches of 3 and 4, and bit-identical results from repeated launches; K3
+in the split LQ solve, after `backward_pass`, against `forward_pass` and
+K1's fused solve on the projected and the AL path's stance LQ at N = 28).
+Every solver configuration (the main path, AL + merit, parallel Riccati,
+midpoint and exact sensitivities, DDP, the staged solver) at N = 28 on the
+kernels against the same configuration on the plain versions, with its
+launch counts a solve. K2 runs at B = 1, 28, 130 and the merit search's 224;
 its flow variant (the whole-body flow map in one launch) at the solve's 29,
 58 and 174 rows and at 7168, with stance and walking wrenches, and every K2
 launch of a graphed whole-body solve is the flow variant. The
@@ -323,6 +329,132 @@ def test_riccati_kernel_on_the_al_path_lq(card):
            "K1 AL path")
 
 
+# ---- the split LQ solve and every solver configuration, at full width ----
+
+FULL_N = 28        # humanoid23's stance problem at the main path's N
+SOLVE_TOL = 2e-3   # x max(1, max|ref|): a solve on the kernels against the plain versions
+N_SOLVES = 3       # warm-started solves a configuration, the first capturing its graphs
+
+
+@pytest.mark.parametrize("lq_kind", ["projected", "al"])
+def test_split_lq_solve_matches_the_fused_solve(card, lq_kind):
+    """The split LQ solve, the sequential `backward_pass` and then K3
+    (`forward_rollout`, one launch), on humanoid23's damped stance LQ at
+    N = 28 in f32: the main path's projected LQ (nz 21) and the AL path's
+    unprojected one (nu 35), from a start off the trajectory. Against
+    `forward_pass` on the same gains (K3's f32 tolerance, 1e-5 x max(1,
+    max|ref|)) and against K1's fused solve of the same LQ (K1's f32
+    tolerance, atol 5e-4 + rtol 1e-3 |ref|)."""
+    from wb_humanoid_mpc_tpu_torch.solver.projection import project_lq
+    from wb_humanoid_mpc_tpu_torch.solver.riccati import backward_pass, forward_pass
+
+    pb = build_wb_problem(ASSETS / "humanoid23", FULL_N, device=card, dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=FULL_N, dt=pb.cfg.sqp.dt)
+    fns = make_lq_functions(pb.ocp, pb.model.flow_map, cfg.dt, FULL_N, pb.bp, sensitivity="node",
+                            flow_batch=pb.model.flow_map_batch)
+    times = cfg.dt * torch.arange(FULL_N + 1, dtype=torch.float32, device=card)
+    if lq_kind == "projected":
+        lq = fns.lq_approximation(pb.traj, times, pb.params, pb.lam, min(cfg.rho, 1.0))
+        lq = levenberg_damp(project_lq(lq, lq.Cx, lq.Du, lq.g_res, cfg.proj_eps)[0], cfg.reg)
+    else:
+        lq = levenberg_damp(fns.lq_approximation(pb.traj, times, pb.params, pb.lam, cfg.rho),
+                            cfg.reg)
+    assert lq.B.shape == (FULL_N, 58, 21 if lq_kind == "projected" else 35)
+    rng = np.random.default_rng(5)
+    dx0 = pb.x0 - pb.traj.xs[0] + torch.as_tensor(rng.normal(size=58) * 0.01,
+                                                   dtype=torch.float32, device=card)
+    gains = backward_pass(lq, cfg.reg_num)
+    before = rollout.LAUNCHES
+    got = rollout.forward_rollout(lq, gains, dx0, backend="cuda")
+    assert rollout.LAUNCHES == before + 1
+    _close(got, forward_pass(lq, gains, dx0), K3_TOL[torch.float32],
+           f"split solve {lq_kind} vs forward_pass")
+    fused = riccati.riccati_rollout(lq, dx0, cfg.reg_num, backend="cuda")
+    for what, a, b in zip(("dxs", "dus"), got, fused):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=5e-4,
+                                   msg=lambda m: f"split solve {lq_kind} {what} vs K1: {m}")
+
+
+def _exactly(k1, k2):
+    """Launch counts {kernel: (least, most)} in n solves: k1 and k2 a solve."""
+    return lambda n: {"K1": (k1 * n, k1 * n), "K2": (k2 * n, k2 * n), "K3": (0, 0)}
+
+
+def _ladder(k1, k2_lq):
+    """The same, with k2_lq K2 launches in the LQ and the two-stage filter
+    ladder: one or two candidate sweeps of 3 each."""
+    return lambda n: {"K1": (k1 * n, k1 * n), "K2": ((k2_lq + 3) * n, (k2_lq + 6) * n),
+                      "K3": (0, 0)}
+
+
+SOLVER_CONFIGS = {   # name: (factory, config fields, launch counts in n solves)
+    "main": ("sqp", {}, _ladder(1, 3)),
+    "al+merit": ("sqp", dict(equality_handling="al", line_search="merit"), _exactly(1, 11)),
+    "parallel_riccati": ("sqp", dict(parallel_riccati=True), _ladder(0, 3)),
+    "midpoint": ("sqp", dict(sensitivity="midpoint"), _ladder(1, 0)),
+    "exact": ("sqp", dict(sensitivity="exact"), _ladder(1, 0)),
+    "ddp": ("ddp", dict(equality_handling="al"), _exactly(0, 0)),
+    "staged": ("staged", {}, _exactly(1, 10)),
+}
+
+
+@pytest.mark.parametrize("name", list(SOLVER_CONFIGS))
+def test_solver_configuration_kernels_match_plain(card, name):
+    """Each solver configuration at full width (humanoid23's stance problem,
+    N = 28, f32, one SQP iteration a solve), as a user gets it on the card
+    (CUDA graphs, the staged solver one a phase; DDP eager): the main path
+    (projection + filter), AL + merit, parallel Riccati, midpoint and exact
+    sensitivities, DDP and the staged solver. N_SOLVES warm-started solves
+    launch K1, K2 and K3 as often as the configuration implies (a replay
+    counts the launches its graph holds). The first solve against the same
+    configuration on the plain versions (`rollout_backend="plain"`,
+    `flow_backend="plain"`): xs, us and lam within SOLVE_TOL x max(1,
+    max|ref|), the same accepted step, a finite cost and g_norm."""
+    import dataclasses
+
+    from wb_humanoid_mpc_tpu_torch.solver.ddp import make_ddp_solver
+    from wb_humanoid_mpc_tpu_torch.solver.sqp import make_sqp_solver, make_staged_sqp_solver
+
+    kind, fields, expect = SOLVER_CONFIGS[name]
+    factory = {"sqp": make_sqp_solver, "ddp": make_ddp_solver,
+               "staged": make_staged_sqp_solver}[kind]
+    pb = build_wb_problem(ASSETS / "humanoid23", FULL_N, device=card, dtype=torch.float32)
+    cfg = SqpSolverConfig(n_nodes=FULL_N, dt=pb.cfg.sqp.dt, **fields)
+
+    def run(solve, traj, lam):
+        out = solve(0.0, pb.x0, traj, pb.params, lam)
+        return out[0] if kind == "staged" else out   # the staged solver adds its phase times
+
+    solve = factory(pb.ocp, pb.model.flow_map, pb.bp, cfg, device=card)
+    for mod in (riccati, fkvel, rollout):
+        mod.reset_launches()
+    got = run(solve, pb.traj, pb.lam)
+    traj, lam = got.traj, got.lam
+    for _ in range(N_SOLVES - 1):
+        sol = run(solve, traj, lam)
+        traj, lam = sol.traj, sol.lam
+    torch.cuda.synchronize()
+    seen = {"K1": riccati.LAUNCHES, "K2": fkvel.LAUNCHES, "K3": rollout.LAUNCHES}
+    for kernel, (lo, hi) in expect(N_SOLVES).items():
+        assert lo <= seen[kernel] <= hi, (f"{name}: {kernel} launched {seen[kernel]} times in "
+                                          f"{N_SOLVES} solves, expected {lo}..{hi}")
+    plain = factory(pb.ocp, pb.model.flow_map, pb.bp,
+                    dataclasses.replace(cfg, rollout_backend="plain", flow_backend="plain"),
+                    device=card)
+    ref = run(plain, pb.traj, pb.lam)
+    parts = []
+    for what, a, b in (("xs", got.traj.xs, ref.traj.xs), ("us", got.traj.us, ref.traj.us),
+                       ("lam", got.lam, ref.lam)):
+        err, limit = float((a - b).abs().max()), SOLVE_TOL * max(1.0, float(b.abs().max()))
+        assert err <= limit, f"{name} {what}: kernels vs plain {err:.3e} beyond {limit:.3e}"
+        parts.append(f"|d{what}| {err:.3e}")
+    assert float(got.step_size) == float(ref.step_size), (float(got.step_size),
+                                                         float(ref.step_size))
+    assert np.isfinite(float(got.cost)) and np.isfinite(float(got.g_norm))
+    print(f"{name}: vs plain {', '.join(parts)}; step {float(got.step_size)}; launches in "
+          f"{N_SOLVES} solves {seen}")
+
+
 @pytest.mark.parametrize("formulation", ["wb", "centroidal"])
 def test_closed_loop_kernels_match_plain(card, formulation):
     """`build_*_mpc` + `run_dummy_sim` on humanoid23 at N = 6, f32, 0.2 s of
@@ -479,14 +611,16 @@ def test_sharded_solve_on_the_card(card):
 def test_graphed_sharded_solve_matches_eager_on_the_card(card):
     """`make_sharded_sqp_solver`'s CUDA graphs (`GraphedShardedSolve`)
     against its eager twin (`dryrun.sharded_graphs_case`: humanoid23 walk,
-    N = 6, B = 2, two SQP iterations, f64, every residual shifted by 0.05
-    sin(t), two calls of other t0 and x0s): on a 1 x 1 `nccl` mesh one graph
-    an iteration and one for the final gathers, the collectives inside; on
-    a 1 x 2 `gloo` mesh one graph a part, the 13 collectives between the
-    replays. The same solutions within 1e-9 x max(1, max|ref|) (expected 0)
-    and the same steps, both calls (the second shows that t0 is read at
-    every replay); K2 9 and the collectives 11 times an iteration (+2
-    gathers) on every rank, every call."""
+    two SQP iterations, f64, every residual shifted by 0.05 sin(t), two
+    calls of other t0 and x0s): on a 1 x 1 `nccl` mesh (N = 6, B = 2) one
+    graph an iteration and one for the final gathers, the collectives
+    inside; on a 1 x 2 `gloo` mesh (N = 6, B = 2) and a 2 x 2 one, batch
+    and horizon both split, at N = 28 (B = 4, four ranks on this card), one
+    graph a part, the 13 collectives between the replays. The same
+    solutions within 1e-9 x max(1, max|ref|) (expected 0) and the same
+    steps, both calls (the second shows that t0 is read at every replay);
+    K2 9 and the collectives 11 times an iteration (+2 gathers) on every
+    rank, every call."""
     # by its directory, which pytest puts on sys.path: a package named
     # `tests` installed elsewhere may shadow this repo's `tests.`
     from _graphs_common import TimedPortOcp
@@ -494,24 +628,30 @@ def test_graphed_sharded_solve_matches_eager_on_the_card(card):
     from wb_humanoid_mpc_tpu_torch.parallel.multihost import run_ranks
 
     iters = 2
-    case = dict(robot="humanoid23", n_nodes=6, batch=2, n_dp=1, device="cuda", dtype="float64",
-                iterations=iters, ocp_cls=TimedPortOcp)
-    for backend, n_h, n_graphs, between in (("nccl", 1, 2, 0), ("gloo", 2, 11, 13)):
-        ranks = run_ranks(dryrun.run_cases, n_h, backend, "cuda",
-                          [(dryrun.sharded_graphs_case, dict(case, n_h=n_h, backend=backend))],
+    case = dict(robot="humanoid23", device="cuda", dtype="float64", iterations=iters,
+                ocp_cls=TimedPortOcp)
+    meshes = (("nccl", 1, 1, 6, 2, 0), ("gloo", 1, 2, 6, 11, 13), ("gloo", 2, 2, 28, 11, 13))
+    for backend, n_dp, n_h, N, n_graphs, between in meshes:
+        ranks = run_ranks(dryrun.run_cases, n_dp * n_h, backend, "cuda",
+                          [(dryrun.sharded_graphs_case,
+                            dict(case, n_nodes=N, batch=2 * n_dp, n_dp=n_dp, n_h=n_h,
+                                 backend=backend))],
                           timeout_s=600.0)
+        assert sorted(r["coords"] for (r,) in ranks) == [(i, j) for i in range(n_dp)
+                                                         for j in range(n_h)]
         for (r,) in ranks:
-            assert r["report"]["graphs"] == n_graphs, (backend, r["report"])
-            assert r["report"]["eager_collectives"] == between, (backend, r["report"])
+            assert r["report"]["graphs"] == n_graphs, (backend, n_dp, n_h, r["report"])
+            assert r["report"]["eager_collectives"] == between, (backend, n_dp, n_h, r["report"])
             for call, (got, ref) in enumerate(zip(r["graphed"], r["eager"])):
                 for name in ("xs", "us", "cost", "g_norm", "defect_norm"):
                     scale = max(1.0, float(np.abs(ref[name]).max()))
                     err = float(np.abs(got[name] - ref[name]).max())
-                    assert err <= 1e-9 * scale, (backend, call, name, err)
+                    assert err <= 1e-9 * scale, (backend, n_dp, n_h, call, name, err)
                 np.testing.assert_array_equal(got["step_size"], ref["step_size"])
-            assert r["k2_launches"] == [9 * iters] * 2, (backend, r["k2_launches"])
+            assert r["k2_launches"] == [9 * iters] * 2, (backend, n_dp, n_h, r["k2_launches"])
             assert r["collectives"] == [{"all_gather": 6 * iters + 2,
-                                         "all_reduce": 5 * iters}] * 2, (backend, r["collectives"])
+                                         "all_reduce": 5 * iters}] * 2, \
+                (backend, n_dp, n_h, r["collectives"])
 
 
 def test_launch_dummy_sim_on_the_card(card, tmp_path):

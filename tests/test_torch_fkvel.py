@@ -5,7 +5,8 @@ the JAX "xla" path, and the batched flow map built on it.
 Tolerances: f32 atol 2e-6 and f64 atol 1e-12 for the tree pass
 (tests/test_ops_fkvel.py:49); the flow map at rtol 2e-4, atol 2e-5 in f32
 (tests/test_ops_fkvel.py:66) and 1e-10 in f64. The CUDA kernel itself is held
-against this plain version on the card by chip_smoke.py."""
+against this plain version on the card by tests/test_torch_cuda.py and timed
+alone by the kernel harness, chip_smoke.py."""
 
 from __future__ import annotations
 

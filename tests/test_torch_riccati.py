@@ -7,7 +7,9 @@ port's numpy copy of `_lq_data`).
 Tolerances as tests/test_ops_riccati.py: f32 atol 2e-4 (K, k; dxs and dus
 scaled by max(|dxs|, 1)); f64 rtol 1e-9; the regularization branch at rtol
 1e-8. The CUDA kernel is held against this plain version on the card by
-chip_smoke.py."""
+tests/test_torch_cuda.py and timed alone by the kernel harness,
+chip_smoke.py, whose work counts must equal the benchmark's roofline
+(`mpcbench/roofline.py`) at the benchmark's shapes."""
 
 from __future__ import annotations
 
@@ -140,3 +142,30 @@ def test_non_positive_definite_stage_gives_nan_as_jax(pass_):
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
         np.testing.assert_allclose(a[~np.isnan(a)], b[~np.isnan(b)], rtol=1e-9, atol=1e-9,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel,shape", [
+    ("K1", (60, 35, 21)),    # cen-walk: (N, nx, nu - n_eq)
+    ("K1", (29, 58, 21)),    # wb-walk
+    ("K2", (29,)),           # wb-walk's rows a launch: RK4 tail, top-2 sweep, lower ladder
+    ("K2", (58,)),
+    ("K2", (174,)),
+], ids=["cen-walk-K1", "wb-walk-K1", "wb-walk-K2-29", "wb-walk-K2-58", "wb-walk-K2-174"])
+def test_kernel_harness_work_matches_the_benchmark_roofline(kernel, shape, itemsize):
+    """The kernel harness's work counts (`chip_smoke.riccati_work`,
+    `fkvel_work`), from which the kernel table's bounds come, equal the
+    frozen copies the benchmark's roofline shares read
+    (`mpcbench/roofline.py`) at the benchmark cells' shapes, humanoid23's
+    joints for K2."""
+    import chip_smoke
+    from mpcbench import roofline
+    from wb_humanoid_mpc_tpu_torch.interface import ASSETS, load_wb_model
+
+    if kernel == "K1":
+        args = (1, *shape, itemsize)
+        assert chip_smoke.riccati_work(*args) == roofline.riccati_work(*args)
+    else:
+        n_j = load_wb_model(ASSETS / "humanoid23")[1].robot.n_joints
+        args = (*shape, n_j, itemsize)
+        assert chip_smoke.fkvel_work(*args) == roofline.fkvel_work(*args)

@@ -7,8 +7,9 @@ carries P and p, then `forward_rollout`) against JAX's.
 
 Tolerances as tests/test_ops_rollout.py: f32 atol 1e-5 x max(1, max|dxs|),
 f64 rtol = atol = 1e-12; the split solve in f64 at rtol 1e-9. The CUDA
-kernel is held against this plain version on the card by chip_smoke.py and
-tests/test_torch_cuda.py."""
+kernel is held against this plain version on the card by
+tests/test_torch_cuda.py (the split solve too) and timed alone by the kernel
+harness, chip_smoke.py."""
 
 from __future__ import annotations
 

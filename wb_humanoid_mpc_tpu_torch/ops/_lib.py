@@ -11,8 +11,8 @@ import every module of the port on a machine without `nvcc`.
 
 It also keeps the launch counts. Each kernel wrapper module registers itself
 (`register_counter(__name__)`), which gives it two plain counts: LAUNCHES,
-its kernel's launches since its last reset (read by chip_smoke.py and the
-tests), and RECORDED, the launches recorded into CUDA graphs. A wrapper
+its kernel's launches since its last reset (read by the tests, the card
+tier's among them), and RECORDED, the launches recorded into CUDA graphs. A wrapper
 counts where it launches, through `count_launch`; under graph capture that
 counts in RECORDED, and `utils/graphs.py` adds what a graph recorded
 (`recorded()` before and after its capture) to LAUNCHES at each replay

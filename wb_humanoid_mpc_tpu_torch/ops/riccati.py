@@ -85,7 +85,8 @@ def riccati_rollout_cuda(A, B, d, Qxx, Quu, Qux, qx, qu, QN, qN, dx0, reg: float
 def random_lq_data(rng, N=28, nx=58, nu=11, dtype=np.float32, quu_span=1.0) -> dict:
     """Random well-posed LQ stage data (SPD Quu/Qxx, near-identity A) as numpy
     arrays keyed like `riccati_rollout_*`'s arguments: the generator of
-    `tests/test_ops_riccati.py::_lq_data`, for the tests and `chip_smoke.py`.
+    `tests/test_ops_riccati.py::_lq_data`, for the tests and the kernel harness
+    (`chip_smoke.py`).
     quu_span > 1 spreads the Quu diagonal across magnitudes to exercise the
     relative regularization."""
     A = np.tile(np.eye(nx, dtype=dtype)[None], (N, 1, 1)) \

@@ -115,7 +115,8 @@ def forward_rollout_cuda(A, B, d, K, k, dx0):
 def random_stage_data(rng, N=28, nx=58, nu=35, dtype=np.float32) -> dict:
     """Random closed-loop stage data (near-identity A, small gains) as numpy
     arrays keyed like `forward_rollout_*`'s arguments: the generator of
-    `tests/test_ops_rollout.py::_stage_data`, for the tests and `chip_smoke.py`."""
+    `tests/test_ops_rollout.py::_stage_data`, for the tests and the kernel
+    harness (`chip_smoke.py`)."""
     A = np.tile(np.eye(nx, dtype=dtype)[None], (N, 1, 1)) \
         + rng.normal(size=(N, nx, nx)).astype(dtype) * 0.005
     B = rng.normal(size=(N, nx, nu)).astype(dtype) * 0.02

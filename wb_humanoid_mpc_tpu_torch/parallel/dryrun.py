@@ -2,16 +2,16 @@
 
 `run_ranks` starts every rank with `spawn`, which imports the module of the
 function the rank runs, and a rank must import neither JAX nor the JAX
-package. So the bodies that `chip_smoke.py`'s `sharded` phase and the CPU
-tests (tests/test_torch_{horizon,multihost,sharded_sqp,graphed_sharded}.py)
-run on every rank live here, in the port:
+package. So the bodies that the card tier's sharded tests
+(tests/test_torch_cuda.py) and the CPU tests
+(tests/test_torch_{horizon,multihost,sharded_sqp,graphed_sharded}.py) run
+on every rank live here, in the port:
 
 - `run_cases` runs a list of cases in order on one rank, so that every case
   of one world size shares one spawn;
 - `sharded_sqp_case` is the port's `dryrun_multichip`
   (`__graft_entry__.py`): the walking problem, batch x horizon sharded,
-  through `make_sharded_sqp_solver` (CUDA graphs on the card), optionally
-  against its eager twin and timed against it in turns;
+  through `make_sharded_sqp_solver` (CUDA graphs on the card);
 - `sharded_graphs_case` holds the graphed sharded solve's runner
   (`GraphedShardedSolve`) against the eager twin over two calls of
   different t0 and x0s;
@@ -29,7 +29,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from wb_humanoid_mpc_tpu_torch.interface import ASSETS, build_wb_problem, walking_reference
 from wb_humanoid_mpc_tpu_torch.ops import fkvel
@@ -89,19 +88,14 @@ def _row_counter(base):
 
 
 def sharded_sqp_case(robot: str, n_nodes: int, batch: int, n_dp: int, n_h: int, backend: str,
-                     device: str, dtype: str, iterations: int = 2, timed_pairs: int = 0,
-                     seed: int = 0, flow_backend: str = "auto", twin: bool = False) -> dict:
+                     device: str, dtype: str, iterations: int = 2, seed: int = 0,
+                     flow_backend: str = "auto") -> dict:
     """One sharded solve of the walking problem on an n_dp x n_h mesh
     (sensitivity "node"; `flow_backend` "plain" for K2's plain twin;
     `make_sharded_sqp_solver`'s default: CUDA graphs on the card), with the
     K2 launches, the `flow_batch` calls by rows and the
     collectives of that solve counted on this rank (set to 0 just before it,
-    read just after; replays included). With `twin`, the same solve by the
-    eager twin (`graphs=False`), and its solution under "eager"; with
-    `timed_pairs`, that many pairs of one solve each, the graphed one and
-    its eager twin in turns (the graphed first in even pairs), all ranks
-    started together before each, for the wall ms of an SQP iteration on
-    this rank."""
+    read just after; replays included)."""
     mesh = make_mpc_mesh(n_dp, n_h, backend=backend, device=device)
     pb, x0s, traj, params, lam = walking_problem(robot, n_nodes, batch, device=device,
                                                  dtype=getattr(torch, dtype), seed=seed)
@@ -121,28 +115,10 @@ def sharded_sqp_case(robot: str, n_nodes: int, batch: int, n_dp: int, n_h: int, 
     out.update(k2_launches=fkvel.LAUNCHES,
                flow_batch_calls={rows: int(n) for rows, n in calls.items()},
                collectives=collectives.counts(), first_s=first_s, coords=mesh.coords,
-               report=mesh_report(mesh), iterations=iterations, graphed=None,
-               ms_per_iteration=None, eager=None)
+               report=mesh_report(mesh), iterations=iterations, graphed=None)
     if isinstance(solve, GraphedShardedSolve):
         (gs,) = solve.sets.values()
         out["graphed"] = gs.report()
-    eager = (make_sharded_sqp_solver(pb.ocp, pb.model.flow_map, pb.bp, cfg, mesh,
-                                     device=device, graphs=False)
-             if twin or timed_pairs else None)
-    if twin:
-        out["eager"] = _numpy(eager(0.0, x0s, traj, params, lam))
-    if timed_pairs:
-        sides = {"graphed": solve, "eager": eager}
-        ms = {side: [] for side in sides}
-        for i in range(timed_pairs):
-            for side in (("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")):
-                dist.barrier()
-                _sync(dev)
-                t0 = time.perf_counter()
-                sides[side](0.0, x0s, traj, params, lam)
-                _sync(dev)
-                ms[side].append((time.perf_counter() - t0) * 1e3 / iterations)
-        out["ms_per_iteration"] = ms
     return out
 
 

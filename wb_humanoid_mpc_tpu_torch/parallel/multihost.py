@@ -17,7 +17,8 @@ host.
 - `mesh_report` summarises the mesh.
 - `run_ranks` starts `world` ranks on this machine and returns what each
   returned: the counterpart of JAX's virtual CPU devices in the tests, and
-  how `chip_smoke.py` puts several ranks on one card.
+  how the card tier (tests/test_torch_cuda.py) puts several ranks on one
+  card.
 
 The backend is always the caller's choice: `nccl` for ranks with a card
 each, `gloo` for ranks on the CPU or for several ranks on one card (NCCL
