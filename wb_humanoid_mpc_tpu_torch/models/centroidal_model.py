@@ -44,6 +44,20 @@ def _inv3(M):
     return adj / det[..., None, None]
 
 
+def centroidal_base_factor(A_b):
+    """What `solve_centroidal_base` reads of the CMM base block A_b [..., 6,
+    6]: (A22^-1 by `_inv3`, A12, m = A_b[..., 0, 0] as [..., 1])."""
+    return _inv3(A_b[..., 3:, 3:]), A_b[..., :3, 3:], A_b[..., 0:1, 0]
+
+
+def solve_factored_centroidal_base(factor, rhs):
+    """A_b^-1 rhs from `centroidal_base_factor(A_b)`."""
+    inv22, A12, m = factor
+    w = (inv22 @ rhs[..., 3:, None])[..., 0]
+    v = (rhs[..., :3] - (A12 @ w[..., None])[..., 0]) / m
+    return torch.cat([v, w], dim=-1)
+
+
 def solve_centroidal_base(A_b, rhs):
     """A_b^-1 rhs for the CMM base block A_b [..., 6, 6], rhs [..., 6].
 
@@ -51,9 +65,7 @@ def solve_centroidal_base(A_b, rhs):
     momentum about the COM is exactly zero: A_b = [[m I3, A12], [0, A22]].
     Block back-substitution with a closed-form 3x3 inverse.
     """
-    w = (_inv3(A_b[..., 3:, 3:]) @ rhs[..., 3:, None])[..., 0]
-    v = (rhs[..., :3] - (A_b[..., :3, 3:] @ w[..., None])[..., 0]) / A_b[..., 0:1, 0]
-    return torch.cat([v, w], dim=-1)
+    return solve_factored_centroidal_base(centroidal_base_factor(A_b), rhs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,9 +153,22 @@ class CentroidalModel:
         """(q, v) of the rigid-body chart -> centroidal state (h = A v / mass)."""
         return torch.cat([dyn.normalized_centroidal_momentum(self.robot, q, v), q], dim=-1)
 
+    def velocity_terms(self, x, fk=None):
+        """The state-only part of `generalized_velocity`: (m h, the joint
+        columns A_j of the momentum matrix, `centroidal_base_factor` of its
+        base block)."""
+        lay = self.layout
+        A = self._momentum_matrix(lay.generalized_coordinates(x), fk)
+        return (self.robot.total_mass * lay.momentum(x), A[..., 6:],
+                centroidal_base_factor(A[..., :6]))
+
+    def velocity_from_terms(self, terms, qd_j):
+        """`generalized_velocity` from its `velocity_terms`."""
+        m_h, A_j, base = terms
+        rhs = m_h - (A_j @ qd_j[..., None])[..., 0]
+        return torch.cat([solve_factored_centroidal_base(base, rhs), qd_j], dim=-1)
+
     def generalized_velocity(self, x, qd_j, fk=None):
         """Full generalized velocity from the state and the joint velocity
         input (`fk`: the kinematics at x's q, when the caller has it)."""
-        lay = self.layout
-        A = self._momentum_matrix(lay.generalized_coordinates(x), fk)
-        return torch.cat([self._base_velocity(A, lay.momentum(x), qd_j), qd_j], dim=-1)
+        return self.velocity_from_terms(self.velocity_terms(x, fk), qd_j)

@@ -9,8 +9,9 @@ that the whole-body flow map and OCP reach:
 - nle(q, v) = sum_b J_b^T [F; N_o] from the bias wrenches
   (`nle_newton_euler`);
 - the 6x6 base block solved by a statically unrolled Cholesky
-  (`_spd_solve_unrolled`): no `torch.linalg` inside code that the LQ
-  linearization differentiates with `torch.func`;
+  (`spd_factor_unrolled`, `spd_solve_factored`; the factor depends on q
+  alone, so the node linearization's u-pass reuses it): no `torch.linalg`
+  inside code that the LQ linearization differentiates with `torch.func`;
 - for the centroidal formulation: the COM (`com_position`), the centroidal
   momentum matrix A_G(q) (`centroidal_momentum_matrix`) and h_G / m
   (`normalized_centroidal_momentum`); and the full-matrix helpers
@@ -172,9 +173,10 @@ def normalized_centroidal_momentum(model: RobotModel, q: torch.Tensor,
     return (centroidal_momentum_matrix(model, q) @ v[..., None])[..., 0] / model.total_mass
 
 
-def _spd_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for small SPD A ([..., n, n]) by a statically unrolled
-    Cholesky, elementwise over the leading dims."""
+def spd_factor_unrolled(A: torch.Tensor) -> tuple:
+    """Cholesky factor of small SPD A ([..., n, n]) by a statically unrolled
+    recursion, elementwise over the leading dims: the rows of L, row i the
+    i + 1 tensors L[i][0..i] ([...] each)."""
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
     for j in range(n):
@@ -188,6 +190,12 @@ def _spd_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             L[i][j] = s * inv_d
+    return tuple(tuple(row[:i + 1]) for i, row in enumerate(L))
+
+
+def spd_solve_factored(L: tuple, b: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T x = b ([..., n]) for the factor of `spd_factor_unrolled`."""
+    n = len(L)
     y = [None] * n
     for i in range(n):
         s = b[..., i]
@@ -203,16 +211,24 @@ def _spd_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def base_acceleration_rows(M6, nle6, qdd_joints, tau6):
-    """Base acceleration from base-rows data only."""
+def _spd_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for small SPD A ([..., n, n]) by a statically unrolled
+    Cholesky, elementwise over the leading dims."""
+    return spd_solve_factored(spd_factor_unrolled(A), b)
+
+
+def base_acceleration_rows(M6, nle6, L6, qdd_joints, tau6):
+    """Base acceleration from base-rows data only (L6: `spd_factor_unrolled`
+    of the base block M6[..., :, :6])."""
     rhs = -nle6 - (M6[..., :, 6:] @ qdd_joints[..., None])[..., 0] + tau6
-    return _spd_solve_unrolled(M6[..., :, :6], rhs)
+    return spd_solve_factored(L6, rhs)
 
 
-def generalized_accelerations_rows(M6, nle6, qdd_joints, J_contacts, wrenches):
-    """[a_base(6); qdd_joints]. J_contacts [..., n_c, 6, nq], wrenches [..., n_c, 6]."""
+def generalized_accelerations_rows(M6, nle6, L6, qdd_joints, J_contacts, wrenches):
+    """[a_base(6); qdd_joints]. J_contacts [..., n_c, 6, nq], wrenches [..., n_c, 6];
+    L6 as `base_acceleration_rows` takes it."""
     tau6 = torch.einsum("...crm,...cr->...m", J_contacts[..., :6], wrenches)
-    a_base = base_acceleration_rows(M6, nle6, qdd_joints, tau6)
+    a_base = base_acceleration_rows(M6, nle6, L6, qdd_joints, tau6)
     return torch.cat([a_base, qdd_joints], dim=-1)
 
 

@@ -44,8 +44,8 @@ class WholeBodyModel:
         lay = self.layout
         J = kin.all_body_jacobians(self.robot, fk)
         M6, nle6 = dyn.base_rows_mass_nle(self.robot, fk, vb, J)
-        a = dyn.generalized_accelerations_rows(M6, nle6, lay.joint_input(u),
-                                               self._contact_jacobians(fk),
+        a = dyn.generalized_accelerations_rows(M6, nle6, dyn.spd_factor_unrolled(M6[..., :, :6]),
+                                               lay.joint_input(u), self._contact_jacobians(fk),
                                                lay.contact_wrenches(u))
         return torch.cat([v, a], dim=-1)
 

@@ -62,6 +62,27 @@ def _rotation_error(R, R_ref):
                               E[..., 1, 0] - E[..., 0, 1]], dim=-1)
 
 
+class CentroidalFootTerms(NamedTuple):
+    """One foot's state-only terms (`CentroidalOcp.state_terms`)."""
+    R: torch.Tensor            # [..., 3, 3] orientation
+    J: torch.Tensor            # [..., 6, nv] frame Jacobian
+    r: torch.Tensor            # [..., 6] residual rows: position, tilt
+    gz_dz: torch.Tensor        # [..., 1] height feedback
+    tilt_err: torch.Tensor     # [..., 3] the stance rows' orientation feedback
+    rel_com: torch.Tensor      # [..., 3] position relative to the COM
+
+
+class CentroidalStateTerms(NamedTuple):
+    """What a node's terms and x_dot take from the state alone."""
+    velocity: tuple            # `CentroidalModel.velocity_terms`
+    feet: tuple                # CentroidalFootTerms per contact frame
+    links: tuple               # per task-space link: (J [..., 6, nv], pose rows [..., 6])
+    r_q: torch.Tensor          # [..., nx] the state's residual rows
+    r_icp: torch.Tensor        # [..., 2] ICP rows
+    h_quad: torch.Tensor       # [..., 2 n_j + 16] joint-limit and collision rows
+    mimic: tuple               # per mimic joint: position feedback [..., 1]
+
+
 class _Consts(NamedTuple):
     sqrt_Q: torch.Tensor
     sqrt_R: torch.Tensor
@@ -142,11 +163,13 @@ class CentroidalOcp:
     def node_terms(self, t, x, u, p: NodeParams) -> NodeTerms:
         return self.fused_node(t, x, u, p)[0]
 
-    def fused_node(self, t, x, u, p: NodeParams) -> tuple[NodeTerms, torch.Tensor]:
-        """(NodeTerms, x_dot) sharing one FK / centroidal-momentum pass: the
-        flow map's h_dot needs the contact positions and the COM, and its
-        qb_dot is the base part of the generalized velocity the cost terms
-        already recover."""
+    def state_terms(self, t, x, p: NodeParams) -> CentroidalStateTerms:
+        """The part of `fused_node` that depends on the state (and the
+        params) alone: the FK pass, the momentum matrix's part of the
+        generalized velocity, the feet's and task-space links' kinematics,
+        the COM and every row, or part of a row, that no input reaches. The
+        node linearization computes them once, in its x-pass, and holds them
+        fixed in its u-pass."""
         c = self.cfg
         model = self.model
         lay = model.layout
@@ -154,85 +177,38 @@ class CentroidalOcp:
         k = self._consts(x.device, x.dtype)
 
         q = lay.generalized_coordinates(x)
-        qd_j = lay.joint_input(u)
         fk = kin.forward_kinematics(robot, q)
-        v = model.generalized_velocity(x, qd_j, fk)
-
-        # ---------- Gauss-Newton residuals ----------
-        rs = [k.sqrt_Q * (x - p.x_ref), k.sqrt_R * (u - p.u_ref)]
+        com = dyn.com_from_fk(robot, fk)
+        fc = c.model_settings.foot_constraint
 
         # per-foot task-space cost (position reference: the origin, as in the
         # reference `CentroidalMpcEndEffectorFootCost.cpp:137`)
         w = k.sqrt_w
-        foot_kin = []
+        feet, p_feet = [], []
         for i, frame in enumerate(model.contact_frames):
             R_f, p_f = kin.frame_transform(robot, fk, frame)
-            J_f = kin.frame_jacobian(robot, fk, frame)
-            twist = (J_f @ v[..., None])[..., 0]
-            foot_kin.append((R_f, p_f, J_f, twist))
-            rs.append(torch.cat([
-                w[0:3] * p_f,
-                w[3:6] * _tilt_error(R_f, k.normal),
-                w[6:9] * twist[..., :3] * p.proximity[..., i:i + 1],
-                w[9:12] * twist[..., 3:6],
-            ], dim=-1))
+            tilt = _tilt_error(R_f, k.normal)
+            p_feet.append(p_f)
+            feet.append(CentroidalFootTerms(
+                R=R_f, J=kin.frame_jacobian(robot, fk, frame),
+                r=torch.cat([w[0:3] * p_f, w[3:6] * tilt], dim=-1),
+                gz_dz=fc.position_error_gain_z * (p_f[..., 2:3] - p.z_pos[..., i:i + 1]),
+                tilt_err=fc.orientation_error_gain * tilt, rel_com=p_f - com))
 
         # task-space link costs
+        links = []
         for ts_idx, ts in enumerate(c.task_space_costs.values()):
             R_l, p_l = kin.frame_transform(robot, fk, ts.link_name)
-            tw = (kin.frame_jacobian(robot, fk, ts.link_name) @ v[..., None])[..., 0]
             wl = k.sqrt_ts[ts_idx]
             ref = p.torso_ref[..., ts_idx, :]
             R_ref = ref[..., 3:12].reshape(*ref.shape[:-1], 3, 3)
-            rs.append(torch.cat([
-                wl[0:3] * (p_l - ref[..., 0:3]),
-                wl[3:6] * _rotation_error(R_l, R_ref),
-                wl[6:9] * (tw[..., :3] - ref[..., 12:15]),
-                wl[9:12] * (tw[..., 3:6] - ref[..., 15:18]),
-            ], dim=-1))
+            links.append((kin.frame_jacobian(robot, fk, ts.link_name),
+                          torch.cat([wl[0:3] * (p_l - ref[..., 0:3]),
+                                     wl[3:6] * _rotation_error(R_l, R_ref)], dim=-1)))
 
         # ICP / com-centering cost
-        com = dyn.com_from_fk(robot, fk)
-        mid = 0.5 * (foot_kin[0][1] + foot_kin[1][1])
-        rs.append(k.sqrt_icp * (mid[..., :2] - com[..., :2]))
-
-        # leg torque costs: tau_ext = (J^T W)_joints, scaled by the other
-        # foot's proximity
-        for i, leg in enumerate(k.legs):
-            if leg is None:
-                continue
-            sqrt_wl, idx = leg
-            J_f = foot_kin[i][2]
-            tau_ext = (J_f.transpose(-1, -2) @ lay.contact_wrench(u, i)[..., None])[..., 0]
-            scaler = 1.0 - p.proximity[..., 1 - i:2 - i]
-            rs.append(sqrt_wl * tau_ext[..., idx] * scaler)
-
-        r = torch.cat(rs, dim=-1)
-
-        # ---------- relaxed-log-barrier rows ----------
-        h_rows, h_masks = [], []
-        mu_f = c.contacts.friction_coefficient
-        for i in range(2):
-            f_w = lay.contact_force(u, i)
-            cone = mu_f * f_w[..., 2:3] - torch.sqrt(
-                f_w[..., 0:1] ** 2 + f_w[..., 1:2] ** 2 + FRICTION_REGULARIZATION)
-            h_rows.append(masked_barrier_value(cone, p.contact[..., i:i + 1]))
-            h_masks.append(p.contact[..., i:i + 1].expand(cone.shape))
-        ct = c.contacts
-        for i in range(2):
-            RT = foot_kin[i][0].transpose(-1, -2)
-            f_l = (RT @ lay.contact_force(u, i)[..., None])[..., 0]
-            m_l = (RT @ lay.contact_torque(u, i)[..., None])[..., 0]
-            rows = torch.stack([
-                m_l[..., 0] - ct.rectangle_y_min * f_l[..., 2],
-                -m_l[..., 0] + ct.rectangle_y_max * f_l[..., 2],
-                -m_l[..., 1] - ct.rectangle_x_min * f_l[..., 2],
-                m_l[..., 1] + ct.rectangle_x_max * f_l[..., 2],
-            ], dim=-1)
-            h_rows.append(masked_barrier_value(rows, p.contact[..., i:i + 1]))
-            h_masks.append(p.contact[..., i:i + 1].expand(rows.shape))
-        h_log = torch.cat(h_rows, dim=-1)
-        h_log_mask = torch.cat(h_masks, dim=-1)
+        mid = 0.5 * (p_feet[0] + p_feet[1])
+        r_icp = k.sqrt_icp * (mid[..., :2] - com[..., :2])
 
         # ---------- hinge-barrier rows (joint limits + collision) ----------
         # all 16 reference sphere pairs in reference row order, inactive in
@@ -243,7 +219,7 @@ class CentroidalOcp:
         def fpos(name):
             return kin.frame_transform(robot, fk, name)[1]
 
-        l_c, r_c = foot_kin[0][1], foot_kin[1][1]
+        l_c, r_c = p_feet
         l1, l2 = fpos(f"{cl}_collision_p_1"), fpos(f"{cl}_collision_p_2")
         r1, r2 = fpos(f"{cr}_collision_p_1"), fpos(f"{cr}_collision_p_2")
         ankle_l, ankle_r = fpos(c.collision.left_ankle_frame), fpos(c.collision.right_ankle_frame)
@@ -262,46 +238,124 @@ class CentroidalOcp:
         qj = lay.joint_angles(x)
         h_quad = torch.cat([k.upper - qj, qj - k.lower, coll_rows], dim=-1)
 
-        # ---------- equality constraints ----------
-        fc = c.model_settings.foot_constraint
-        gz = fc.position_error_gain_z
-        wrench_scale = 2.0 / (robot.total_mass * robot.gravity)
-        g_rows = []
-        for i in range(2):
-            R_f, p_f, _, twist = foot_kin[i]
-            ci = p.contact[..., i:i + 1]
-            dz = p_f[..., 2:3] - p.z_pos[..., i:i + 1]
-            lin = twist[..., :3]
-            stance_rows = torch.cat([
-                lin[..., 0:2], lin[..., 2:3] + gz * dz,
-                twist[..., 3:6] + fc.orientation_error_gain * _tilt_error(R_f, k.normal),
-            ], dim=-1)
-            wrench_rows = lay.contact_wrench(u, i) * wrench_scale
-            g_rows.append(ci * stance_rows + (1.0 - ci) * wrench_rows)
-            normal_vel = twist[..., 2:3] + gz * dz - p.z_vel[..., i:i + 1]
-            g_rows.append((1.0 - ci) * normal_vel)
-        # joint mimic constraints (velocity level + position feedback)
+        # the joint mimic rows' position feedback
+        mimic = []
         for mj in c.mimic_joints:
             ip = robot.joint_index(mj.parent_joint_name)
             ic = robot.joint_index(mj.child_joint_name)
+            mimic.append(mj.position_gain * (mj.multiplier * qj[..., ip:ip + 1]
+                                             - qj[..., ic:ic + 1]))
+        return CentroidalStateTerms(
+            velocity=model.velocity_terms(x, fk), feet=tuple(feet), links=tuple(links),
+            r_q=k.sqrt_Q * (x - p.x_ref), r_icp=r_icp, h_quad=h_quad, mimic=tuple(mimic))
+
+    def fused_node(self, t, x, u, p: NodeParams) -> tuple[NodeTerms, torch.Tensor]:
+        """(NodeTerms, x_dot) sharing one FK / centroidal-momentum pass: the
+        flow map's h_dot needs the contact positions and the COM, and its
+        qb_dot is the base part of the generalized velocity the cost terms
+        already recover. `x` is the state [..., nx] or its `state_terms`
+        (what the node linearization passes, so that its u-pass does not
+        run the state's part again)."""
+        s = x if isinstance(x, CentroidalStateTerms) else self.state_terms(t, x, p)
+        c = self.cfg
+        model = self.model
+        lay = model.layout
+        robot = model.robot
+        k = self._consts(u.device, u.dtype)
+
+        qd_j = lay.joint_input(u)
+        v = model.velocity_from_terms(s.velocity, qd_j)
+
+        # ---------- Gauss-Newton residuals ----------
+        rs = [s.r_q, k.sqrt_R * (u - p.u_ref)]
+        w = k.sqrt_w
+        twists = []
+        for i, foot in enumerate(s.feet):
+            twist = (foot.J @ v[..., None])[..., 0]
+            twists.append(twist)
+            rs += [foot.r, w[6:9] * twist[..., :3] * p.proximity[..., i:i + 1],
+                   w[9:12] * twist[..., 3:6]]
+        for ts_idx, (J_l, r_l) in enumerate(s.links):
+            tw = (J_l @ v[..., None])[..., 0]
+            wl = k.sqrt_ts[ts_idx]
+            ref = p.torso_ref[..., ts_idx, :]
+            rs += [r_l, wl[6:9] * (tw[..., :3] - ref[..., 12:15]),
+                   wl[9:12] * (tw[..., 3:6] - ref[..., 15:18])]
+        rs.append(s.r_icp)
+
+        # leg torque costs: tau_ext = (J^T W)_joints, scaled by the other
+        # foot's proximity
+        for i, leg in enumerate(k.legs):
+            if leg is None:
+                continue
+            sqrt_wl, idx = leg
+            J_f = s.feet[i].J
+            tau_ext = (J_f.transpose(-1, -2) @ lay.contact_wrench(u, i)[..., None])[..., 0]
+            scaler = 1.0 - p.proximity[..., 1 - i:2 - i]
+            rs.append(sqrt_wl * tau_ext[..., idx] * scaler)
+
+        r = torch.cat(rs, dim=-1)
+
+        # ---------- relaxed-log-barrier rows ----------
+        h_rows, h_masks = [], []
+        mu_f = c.contacts.friction_coefficient
+        for i in range(2):
+            f_w = lay.contact_force(u, i)
+            cone = mu_f * f_w[..., 2:3] - torch.sqrt(
+                f_w[..., 0:1] ** 2 + f_w[..., 1:2] ** 2 + FRICTION_REGULARIZATION)
+            h_rows.append(masked_barrier_value(cone, p.contact[..., i:i + 1]))
+            h_masks.append(p.contact[..., i:i + 1].expand(cone.shape))
+        ct = c.contacts
+        for i in range(2):
+            RT = s.feet[i].R.transpose(-1, -2)
+            f_l = (RT @ lay.contact_force(u, i)[..., None])[..., 0]
+            m_l = (RT @ lay.contact_torque(u, i)[..., None])[..., 0]
+            rows = torch.stack([
+                m_l[..., 0] - ct.rectangle_y_min * f_l[..., 2],
+                -m_l[..., 0] + ct.rectangle_y_max * f_l[..., 2],
+                -m_l[..., 1] - ct.rectangle_x_min * f_l[..., 2],
+                m_l[..., 1] + ct.rectangle_x_max * f_l[..., 2],
+            ], dim=-1)
+            h_rows.append(masked_barrier_value(rows, p.contact[..., i:i + 1]))
+            h_masks.append(p.contact[..., i:i + 1].expand(rows.shape))
+        h_log = torch.cat(h_rows, dim=-1)
+        h_log_mask = torch.cat(h_masks, dim=-1)
+
+        # ---------- equality constraints ----------
+        wrench_scale = 2.0 / (robot.total_mass * robot.gravity)
+        g_rows = []
+        for i, (foot, twist) in enumerate(zip(s.feet, twists)):
+            ci = p.contact[..., i:i + 1]
+            off = 1.0 - ci
+            lin = twist[..., :3]
+            stance_rows = torch.cat([
+                lin[..., 0:2], lin[..., 2:3] + foot.gz_dz, twist[..., 3:6] + foot.tilt_err,
+            ], dim=-1)
+            wrench_rows = lay.contact_wrench(u, i) * wrench_scale
+            g_rows.append(ci * stance_rows + off * wrench_rows)
+            normal_vel = twist[..., 2:3] + foot.gz_dz - p.z_vel[..., i:i + 1]
+            g_rows.append(off * normal_vel)
+        # joint mimic constraints (velocity level + position feedback)
+        for mj, pos_term in zip(c.mimic_joints, s.mimic):
+            ip = robot.joint_index(mj.parent_joint_name)
+            ic = robot.joint_index(mj.child_joint_name)
             g_rows.append(mj.multiplier * qd_j[..., ip:ip + 1] - qd_j[..., ic:ic + 1]
-                          + mj.position_gain * (mj.multiplier * qj[..., ip:ip + 1]
-                                                - qj[..., ic:ic + 1]))
+                          + pos_term)
         g = torch.cat(g_rows, dim=-1)
 
-        terms = NodeTerms(r=r, h_log=h_log, h_log_mask=h_log_mask, h_quad=h_quad, g=g)
+        terms = NodeTerms(r=r, h_log=h_log, h_log_mask=h_log_mask, h_quad=s.h_quad, g=g)
 
         # ---------- flow map from the same pass ----------
         m_total = robot.total_mass
         f_sum = tau_sum = None
-        for i in range(2):
+        for i, foot in enumerate(s.feet):
             f_i = lay.contact_force(u, i)
-            tau_i = cross(foot_kin[i][1] - com, f_i) + lay.contact_torque(u, i)
+            tau_i = cross(foot.rel_com, f_i) + lay.contact_torque(u, i)
             f_sum = f_i if f_sum is None else f_sum + f_i
             tau_sum = tau_i if tau_sum is None else tau_sum + tau_i
         lin = f_sum / m_total
-        lin = torch.cat([lin[..., :2], lin[..., 2:] - robot.gravity], dim=-1)
-        x_dot = torch.cat([lin, tau_sum / m_total, v[..., :6], qd_j], dim=-1)
+        x_dot = torch.cat([lin[..., :2], lin[..., 2:] - robot.gravity, tau_sum / m_total,
+                           v[..., :6], qd_j], dim=-1)
         return terms, x_dot
 
     def terminal_residual(self, t, x, p: NodeParams) -> torch.Tensor:

@@ -7,8 +7,13 @@ continuous dynamics and the cost/constraint terms (`ocp.fused_node`) are
 linearized once at the node:
 
     x-pass: torch.func.vmap over the nx identity tangents of torch.func.jvp
-            (JAX: jax.vmap(jvp_x)(eye_x) after jax.linearize)
-    u-pass: the same over the nu identity tangents
+            (JAX: jax.vmap(jvp_x)(eye_x) after jax.linearize), of
+            `ocp.fused_node` on `ocp.state_terms(x)`; it hands out the
+            state terms' values (the FK pass, frame kinematics, the rows no
+            input reaches)
+    u-pass: the same over the nu identity tangents, of `ocp.fused_node` on
+            those terms held fixed: only the input's part of the node runs
+            (JAX's u-pass runs the whole node again; the same values)
 
 and the linearization is discretized with the RK4 matrix polynomial
 Phi = I + hA + (hA)^2/2 + (hA)^3/6 + (hA)^4/24,
@@ -116,18 +121,20 @@ def _gn_assemble(bp, r, h_log, h_quad, g, hmask, Jr, Jhl, Jhq, Jg, lam, rho):
     return grad, Hess
 
 
-def _tangent_jacobians(f, primal, n):
+def _tangent_jacobians(f, primal, n, has_aux: bool = False):
     """Jacobians of every output of f at `primal` ([..., n]) by forward mode:
     one jvp per identity tangent, batched by torch.func.vmap. Returns
-    (outputs, [..., out, n] Jacobians of each output)."""
+    (outputs, [..., out, n] Jacobians of each output), and with `has_aux`
+    (f returns (outputs, aux)) the primal value of aux third."""
     eye = torch.eye(n, dtype=primal.dtype, device=primal.device)
     tangents = eye.reshape(n, *([1] * (primal.dim() - 1)), n).expand(n, *primal.shape)
 
     def jvp_one(tangent):
-        return torch.func.jvp(f, (primal,), (tangent,))
+        return torch.func.jvp(f, (primal,), (tangent,), has_aux=has_aux)
 
-    outs, jac = torch.func.vmap(jvp_one, out_dims=(None, 0))(tangents)
-    return outs, tuple(torch.movedim(j, 0, -1) for j in jac)
+    outs, jac, *aux = torch.func.vmap(
+        jvp_one, out_dims=(None, 0, None) if has_aux else (None, 0))(tangents)
+    return (outs, tuple(torch.movedim(j, 0, -1) for j in jac), *aux)
 
 
 def make_node_lq(ocp, flow, dt: float, bp: BarrierParams,
@@ -143,8 +150,9 @@ def make_node_lq(ocp, flow, dt: float, bp: BarrierParams,
     RK4 with a batched flow (JAX's `external_tail=True`)."""
     if sensitivity not in ("exact", "node", "midpoint"):
         raise ValueError(f"unknown sensitivity mode {sensitivity!r}")
-    if not hasattr(ocp, "fused_node"):
-        raise NotImplementedError("the port linearizes through ocp.fused_node only")
+    if not (hasattr(ocp, "fused_node") and hasattr(ocp, "state_terms")):
+        raise NotImplementedError("the port linearizes through ocp.state_terms and "
+                                  "ocp.fused_node only")
 
     def rk4_tail(t, x, u, k1, k2=None):
         """x_next from k1 (and k2, where the caller has it) with the per-sample flow."""
@@ -184,17 +192,20 @@ def make_node_lq(ocp, flow, dt: float, bp: BarrierParams,
         nx, nu = x.shape[-1], u.shape[-1]
 
         def fx(x_):
-            terms, xdot = ocp.fused_node(t, x_, u, p)
-            return terms.r, terms.h_log, terms.h_quad, terms.g, xdot, terms.h_log_mask
+            s = ocp.state_terms(t, x_, p)
+            terms, xdot = ocp.fused_node(t, s, u, p)
+            return (terms.r, terms.h_log, terms.h_quad, terms.g, xdot, terms.h_log_mask), s
 
         def fu(u_):
-            terms, xdot = ocp.fused_node(t, x, u_, p)
+            terms, xdot = ocp.fused_node(t, s, u_, p)
             return terms.r, terms.h_log, terms.h_quad, terms.g, xdot
 
-        # one heavy linearization over x (the full rigid-body graph) ...
-        (r, h_log, h_quad, g, k1, hmask), Jx = _tangent_jacobians(fx, x, nx)
+        # one heavy linearization over x (the full rigid-body graph), which
+        # hands out the state's terms ...
+        (r, h_log, h_quad, g, k1, hmask), Jx, s = _tangent_jacobians(fx, x, nx, has_aux=True)
         Jr_x, Jhl_x, Jhq_x, Jg_x, Ac = Jx[:5]
-        # ... and one over u
+        # ... and one over u, with those terms held fixed: only the input's
+        # part of the node runs again
         _, Ju = _tangent_jacobians(fu, u, nu)
         Jr_u, Jhl_u, Jhq_u, Jg_u, Bc = Ju
 
